@@ -26,6 +26,9 @@ FMAX = 550.  # Hz
 # Samples between analysis frames
 HOPSIZE = 256  # samples
 
+# Number of speech harmonic contours (F0..Fk) the harmonics feature decodes
+MAX_HARMONICS = 3
+
 # Loudness floor; silence clamps to this value
 MIN_DB = -100.
 
@@ -160,5 +163,6 @@ INFERENCE_FRAME_BUCKETS = [
     64, 128, 256, 384, 512, 640, 768, 896, 1024,
     1280, 1536, 1792, 2048, 2560, 3072, 3584, 4096]
 
-# Pitch estimation front-end; only the learned 'cnn' estimator is ported
+# Pitch estimation front-end: the learned 'cnn' estimator or the 'dsp'
+# normalized cross-correlation
 PITCH_ESTIMATOR = 'cnn'

@@ -9,6 +9,10 @@ stride-1 (k, in, out) kernels (per output channel) and over axes (0, 2)
 of the transposed-conv kernels (per input channel). Transposed-conv taps
 are flipped along k. Every leaf must be used exactly once: an unmapped
 or left-over leaf raises.
+
+Only the generator, the pitch CNN and the PPG encoder have weights. The
+harmonics path, the 'dsp' pitch front end and both Viterbi decodes have
+no parameters, so there is no converter for them.
 """
 import numpy as np
 import torch

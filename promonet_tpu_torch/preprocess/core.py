@@ -1,10 +1,11 @@
 """Feature extraction (counterpart of `promonet_tpu/preprocess/core.py`)
 
-Audio is zero-padded to a bucketed frame count, every feature is
-computed on the padded audio, and the results are trimmed to the true
-frame count, as the JAX package's fused extractor does. The padding
-changes the features of the last frames, so the bucket ladder is part
-of the result.
+For loudness, pitch, periodicity and PPG the audio is zero-padded to a
+bucketed frame count, every feature is computed on the padded audio, and
+the results are trimmed to the true frame count, as the JAX package's
+fused extractor does. The padding changes the features of the last
+frames, so the bucket ladder is part of the result. Harmonics are
+computed on the unpadded audio.
 """
 import numpy as np
 import torch
@@ -12,11 +13,17 @@ import torch
 from .. import config as config_module
 from .. import device as device_module
 from ..data import bucket_frames
+from ..utils import audio as audio_module
+from . import harmonics as harmonics_module
 from . import loudness as loudness_module
 from . import pitch as pitch_module
 from . import spectrogram as spectrogram_module
 
-FEATURES = ('loudness', 'pitch', 'periodicity', 'ppg')
+# Features computed on the bucket-padded audio
+PADDED = ('loudness', 'pitch', 'periodicity', 'ppg')
+
+# Every feature, in the order `from_audio` returns them
+FEATURES = PADDED + ('harmonics',)
 
 
 def from_audio(
@@ -24,66 +31,102 @@ def from_audio(
     pitch_model,
     ppg_model,
     sample_rate=None,
-    features=FEATURES,
+    features=PADDED,
     loudness_bands='default',
+    max_harmonics=None,
     config=None,
     device='cuda'
 ):
     """Preprocess audio (1, T) into interpretable features
 
     Arguments
-        audio: (1, T) float waveform at SAMPLE_RATE (numpy or tensor)
-        pitch_model: `preprocess.pitch.PitchCNN` with its weights
-        ppg_model: `preprocess.ppg.PPGEncoder` with its weights
-        sample_rate: must be SAMPLE_RATE; resampling is not ported
-        features: subset of ('loudness', 'pitch', 'periodicity', 'ppg')
+        audio: (1, T) float waveform (numpy or tensor)
+        pitch_model: `preprocess.pitch.PitchCNN` with its weights; may be
+            None when config.PITCH_ESTIMATOR is 'dsp' or pitch is not asked
+        ppg_model: `preprocess.ppg.PPGEncoder` with its weights; may be
+            None when 'ppg' is not asked
+        sample_rate: rate of `audio`; another rate than SAMPLE_RATE is
+            resampled on the host first
+        features: subset of FEATURES
         loudness_bands: band count; None keeps full-band (n_freq) loudness
+        max_harmonics: number of harmonic contours; None takes the config's
         config: a `config.Config`; None reads the environment's
         device: where to run; 'cuda' raises on a host without a card
 
     Returns
         the requested features in the order loudness (bands or n_freq, T),
-        pitch (1, T) in Hz, periodicity (1, T), ppg (PPG_CHANNELS, T), as
-        float32 tensors on `device`
+        pitch (1, T) in Hz, periodicity (1, T), ppg (PPG_CHANNELS, T),
+        harmonics (max_harmonics, T) in Hz, as float32 tensors on `device`
     """
     device = device_module.resolve(device)
     config = config_module.default() if config is None else config
-    if sample_rate is not None and sample_rate != config.SAMPLE_RATE:
-        raise NotImplementedError('Resampling is not ported')
     if loudness_bands == 'default':
         loudness_bands = config.LOUDNESS_BANDS
-    if config.PITCH_ESTIMATOR != 'cnn':
-        raise NotImplementedError('Only the CNN pitch estimator is ported')
-    if not config.VITERBI_DECODE_PITCH:
-        raise NotImplementedError('Only Viterbi pitch decoding is ported')
     unknown = set(features) - set(FEATURES)
     if unknown:
         raise NotImplementedError(f'Features {sorted(unknown)} are not ported')
 
-    audio = torch.as_tensor(np.asarray(audio, np.float32)) \
-        if not isinstance(audio, torch.Tensor) else audio.float()
+    if sample_rate is not None and sample_rate != config.SAMPLE_RATE:
+        audio = audio_module.resample(
+            _to_numpy(audio), sample_rate, config.SAMPLE_RATE)
     frames = audio.shape[-1] // config.HOPSIZE
-    samples = bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS) * \
-        config.HOPSIZE
-    padded = torch.zeros((audio.shape[0], samples), device=device)
-    length = min(audio.shape[-1], samples)
-    padded[:, :length] = audio[:, :length].to(device)
 
+    out = {}
+    if any(name in features for name in PADDED):
+        samples = bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS) * \
+            config.HOPSIZE
+        out = extract_padded(
+            pad(audio, samples, device), pitch_model, ppg_model, features,
+            loudness_bands, config)
+        out = {name: value[..., :frames] for name, value in out.items()}
+    if 'harmonics' in features:
+        out['harmonics'] = harmonics_module.from_audio(
+            _to_numpy(audio), max_harmonics=max_harmonics, config=config,
+            device=device)
+    return tuple(out[name] for name in FEATURES if name in features)
+
+
+def pad(audio, samples, device):
+    """Audio (1, T) as a float32 tensor of `samples` samples on `device`
+
+    Zero-padded or cut at the end.
+    """
+    if not isinstance(audio, torch.Tensor):
+        audio = torch.from_numpy(np.asarray(audio, np.float32))
+    audio = audio[:, :samples].to(device).float()
+    return torch.nn.functional.pad(audio, (0, samples - audio.shape[-1]))
+
+
+def extract_padded(
+    audio, pitch_model, ppg_model, features, loudness_bands, config
+):
+    """The PADDED features of bucket-padded audio (1, T), untrimmed
+
+    Returns {name: tensor}. Pitch is interpolated through unvoiced frames
+    only when it is not Viterbi-decoded, as in the JAX package's fused
+    extractor.
+    """
     out = {}
     with torch.no_grad():
         if 'loudness' in features:
             out['loudness'] = loudness_module.from_audio(
-                padded, config, loudness_bands)
+                audio, config, loudness_bands)
         if 'pitch' in features or 'periodicity' in features:
-            scores = pitch_module.posteriorgram(
-                pitch_model, padded, config.HOPSIZE)
-            pitch, periodicity = pitch_module.decode(
-                scores, config.FMIN, config.FMAX)
-            out['pitch'], out['periodicity'] = pitch[None], periodicity[None]
+            if config.VITERBI_DECODE_PITCH:
+                decoder, interp_at = 'viterbi', None
+            else:
+                decoder, interp_at = 'argmax', config.VOICING_THRESHOLD
+            out['pitch'], out['periodicity'] = pitch_module.estimate(
+                audio, pitch_model, config, decoder, interp_at)
         if 'ppg' in features:
-            spectrogram = spectrogram_module.from_audio(padded[None], config)
+            spectrogram = spectrogram_module.from_audio(audio[None], config)
             mels = spectrogram_module.linear_to_mel(spectrogram[0], config)
             log_probs = ppg_model(mels.transpose(0, 1)[None])
             out['ppg'] = torch.exp(log_probs[0].transpose(0, 1))
-    return tuple(
-        out[name][..., :frames] for name in FEATURES if name in features)
+    return out
+
+
+def _to_numpy(audio):
+    if isinstance(audio, torch.Tensor):
+        return audio.detach().cpu().numpy()
+    return np.asarray(audio)

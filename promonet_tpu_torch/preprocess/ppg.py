@@ -17,6 +17,17 @@ PHONEMES = [
     'l', 'm', 'n', 'ng', 'ow', 'oy', 'p', 'r', 's', 'sh',
     't', 'th', 'uh', 'uw', 'v', 'w', 'y', 'z', 'zh', '<silence>']
 
+PHONEME_TO_INDEX_MAPPING = {p: i for i, p in enumerate(PHONEMES)}
+
+SILENCE = '<silence>'
+
+# Voiced phonemes (vowels, semivowels, nasals, voiced obstruents); the
+# PPG-aware time stretch may exempt all other frames
+VOICED = [
+    'aa', 'ae', 'ah', 'ao', 'aw', 'ay', 'b', 'd', 'dh', 'eh', 'er', 'ey',
+    'g', 'ih', 'iy', 'jh', 'l', 'm', 'n', 'ng', 'ow', 'oy', 'r', 'uh',
+    'uw', 'v', 'w', 'y', 'z', 'zh']
+
 
 class PPGEncoder(nn.Module):
     """Frame-rate phoneme classifier over log-mels"""

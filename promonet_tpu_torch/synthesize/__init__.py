@@ -1,1 +1,1 @@
-from .core import from_features, generate
+from .core import from_edited_audio, from_features, generate

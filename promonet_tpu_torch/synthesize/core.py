@@ -3,12 +3,19 @@
 `from_features` and `generate` follow the JAX package's exact-length
 path: features are padded to a bucketed frame count, the generator runs
 over the bucket, and the audio is trimmed to frames * HOPSIZE samples.
+`from_edited_audio` is the whole editing chain in one call, with every
+intermediate left on the device at its bucket's length.
 """
 import numpy as np
 import torch
 
+from .. import convert
 from .. import device as device_module
+from .. import edit as edit_module
+from .. import preprocess as preprocess_module
 from ..data import bucket_frames
+from ..ops import grid as grid_ops
+from ..utils import audio as audio_module
 
 
 def from_features(
@@ -40,13 +47,129 @@ def from_features(
     Returns
         audio: (1, T * HOPSIZE) numpy array
     """
-    audio = generate(
+    return generate(
         loudness, pitch, periodicity, ppg, generator, speaker,
-        spectral_balance_ratio, loudness_ratio, device)
-    if output_dtype == 'int16':
-        audio = np.clip(
-            np.round(audio * 32767.), -32768., 32767.).astype(np.int16)
-    return audio
+        spectral_balance_ratio, loudness_ratio, device, output_dtype)
+
+
+def from_edited_audio(
+    audio,
+    pitch_model,
+    ppg_model,
+    generator,
+    sample_rate=None,
+    pitch_shift_cents=None,
+    time_stretch_ratio=None,
+    loudness_scale_db=None,
+    stretch_unvoiced=True,
+    stretch_silence=True,
+    speaker=0,
+    spectral_balance_ratio=1.,
+    loudness_ratio=1.,
+    output_dtype='float32',
+    device='cuda'
+):
+    """Audio in → edited audio out, in one call on the device
+
+    Feature extraction, editing and the generator run on bucket-shaped
+    tensors that never leave the device: the audio is padded to its
+    input bucket, the features are resampled on the constant-rate grid
+    arange(output bucket) * step, and only the first
+    round(frames / ratio) * HOPSIZE samples come back. The PPG-aware
+    stretch (`stretch_unvoiced` or `stretch_silence` False) needs the
+    true-length PPG on the host for its grid and goes through
+    `preprocess.from_audio` → `edit.from_features` → `from_features`.
+
+    Arguments
+        audio: (1, T) numpy waveform; int16 is taken as PCM and scaled
+            by 1 / 32768 on the device
+        pitch_model, ppg_model: the extractors' models, on `device`
+        generator: `models.Generator` with its weights, on `device`
+        sample_rate: rate of `audio`; another rate than SAMPLE_RATE is
+            resampled on the host first
+        the edit amounts of `edit.from_features` and the speaker and
+        ratios of `from_features`
+
+    Returns
+        audio: (1, round(T // HOPSIZE / ratio) * HOPSIZE) numpy array
+    """
+    device = device_module.resolve(device)
+    config = generator.config
+    audio = np.asarray(audio)
+    resampled = sample_rate is not None and sample_rate != config.SAMPLE_RATE
+    selective = time_stretch_ratio is not None and not (
+        stretch_unvoiced and stretch_silence)
+    if audio.dtype == np.int16 and (resampled or selective):
+        # Only the one-call path at the native rate takes PCM to the card
+        audio = audio / np.float32(32768.)
+    if resampled:
+        audio = audio_module.resample(audio, sample_rate, config.SAMPLE_RATE)
+
+    if selective:
+        features = preprocess_module.from_audio(
+            audio, pitch_model, ppg_model, loudness_bands=None, config=config,
+            device=device)
+        edited = edit_module.from_features(
+            *features,
+            pitch_shift_cents=pitch_shift_cents,
+            time_stretch_ratio=time_stretch_ratio,
+            loudness_scale_db=loudness_scale_db,
+            stretch_unvoiced=stretch_unvoiced,
+            stretch_silence=stretch_silence,
+            config=config)
+        return from_features(
+            *edited,
+            generator=generator,
+            speaker=speaker,
+            spectral_balance_ratio=spectral_balance_ratio,
+            loudness_ratio=loudness_ratio,
+            output_dtype=output_dtype,
+            device=device)
+
+    hopsize = config.HOPSIZE
+    frames = audio.shape[-1] // hopsize
+    bucket_in = bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS)
+    ratio = 1. if time_stretch_ratio is None else time_stretch_ratio
+    out_frames = int(round(frames / ratio))
+    bucket_out = bucket_frames(out_frames, config.INFERENCE_FRAME_BUCKETS)
+
+    # PCM crosses to the card as int16, half the bytes of float32
+    samples = torch.from_numpy(audio[:, :bucket_in * hopsize]).to(device)
+    padded = preprocess_module.core.pad(
+        samples.float() / 32768. if samples.dtype == torch.int16 else samples,
+        bucket_in * hopsize, device)
+    features = preprocess_module.core.extract_padded(
+        padded, pitch_model, ppg_model, preprocess_module.core.PADDED, None,
+        config)
+
+    # Per-output-frame step in input frames, in float32 as the grid is
+    step = (frames - 1) / (out_frames - 1) if out_frames > 1 else 0.
+    grid = torch.arange(bucket_out, dtype=torch.float32, device=device) * \
+        torch.tensor(step, dtype=torch.float32, device=device)
+    pitch = 2 ** grid_ops.sample(torch.log2(features['pitch']), grid)
+    periodicity = grid_ops.sample(features['periodicity'], grid)
+    loudness = grid_ops.sample(features['loudness'], grid) + torch.tensor(
+        0. if loudness_scale_db is None else loudness_scale_db,
+        dtype=torch.float32, device=device)
+    ppg = grid_ops.sample(features['ppg'], grid, config.PPG_INTERP_METHOD)
+    if pitch_shift_cents is not None:
+        pitch = torch.clamp(
+            pitch * torch.tensor(
+                convert.cents_to_ratio(pitch_shift_cents),
+                dtype=torch.float32, device=device),
+            config.FMIN, config.FMAX)
+
+    with torch.no_grad():
+        output = generator(
+            loudness[None],
+            pitch,
+            periodicity,
+            ppg[None],
+            torch.tensor([speaker], dtype=torch.long, device=device),
+            torch.tensor([spectral_balance_ratio], device=device),
+            torch.tensor([loudness_ratio], device=device))
+    return _as_wire(
+        output[0, :, :out_frames * hopsize], output_dtype).cpu().numpy()
 
 
 def generate(
@@ -58,7 +181,8 @@ def generate(
     speaker=0,
     spectral_balance_ratio=1.,
     loudness_ratio=1.,
-    device='cuda'
+    device='cuda',
+    output_dtype='float32'
 ):
     """Generate speech with padding to bucketed lengths; numpy (1, samples)"""
     device = device_module.resolve(device)
@@ -83,4 +207,17 @@ def generate(
             torch.tensor([speaker], dtype=torch.long, device=device),
             torch.tensor([spectral_balance_ratio], device=device),
             torch.tensor([loudness_ratio], device=device))
-    return audio[0, :, :frames * config.HOPSIZE].cpu().numpy()
+    return _as_wire(
+        audio[0, :, :frames * config.HOPSIZE], output_dtype).cpu().numpy()
+
+
+def _as_wire(audio, output_dtype):
+    """Audio tensor as float32, or as 16-bit PCM for output_dtype 'int16'
+
+    Converted on the device, so PCM halves the bytes copied to the host.
+    """
+    if output_dtype == 'int16':
+        return torch.clamp(
+            torch.round(audio.float() * 32767.), -32768., 32767.).to(
+                torch.int16)
+    return audio

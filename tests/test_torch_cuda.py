@@ -7,7 +7,7 @@ PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances: the Viterbi paths are equal exactly. The bfloat16 residual
+Tolerances: the Viterbi paths (both kernels) are equal exactly. The bfloat16 residual
 block is bounded per element by 2^-5 * (|plain| + 2 * rms(plain)): four
 bf16 ulps relative to the element, with a floor at twice the output's
 RMS, because where the residual add cancels, a rounding flipped early in
@@ -60,6 +60,88 @@ def test_viterbi_kernel_breaks_ties_to_the_first_index(device):
     kernel = viterbi.decode(
         observation.to(device), transition.to(device), initial.to(device))
     np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+def _stft_axis():
+    """The harmonics path's frequency axis: 2039 bins from FMIN to Nyquist"""
+    frequencies = np.abs(np.fft.fftfreq(4096, 1 / 22050)[:2049])
+    return frequencies[int(np.searchsorted(frequencies, 50.)):].astype(
+        np.float32)
+
+
+def _logfreq_observation(kind, frames, states, seed):
+    rng = np.random.default_rng(seed)
+    if kind == 'ties':
+        return torch.from_numpy(
+            np.round(rng.standard_normal((frames, states)))).float()
+    logits = torch.from_numpy(
+        3 * rng.standard_normal((frames, states))).float()
+    if kind in ('masked', 'nan'):
+        low = torch.from_numpy(rng.integers(0, states - 30, frames))[:, None]
+        columns = torch.arange(states)[None]
+        logits = torch.where(
+            (columns >= low) & (columns < low + 25), logits, -float('inf'))
+    observation = torch.log_softmax(logits, -1)
+    if kind == 'nan':
+        observation[frames // 2] = float('nan')
+    return observation
+
+
+@pytest.mark.parametrize('kind', ['random', 'ties', 'masked', 'nan'])
+@pytest.mark.parametrize('frames,states', [
+    (1, 200), (2, 200), (70, 200), (33, 2039), (70, 31), (5, 512)])
+def test_logfreq_kernel_matches_plain(device, kind, frames, states):
+    frequencies = _stft_axis() if states == 2039 else \
+        np.linspace(50., 8000., states)
+    observation = _logfreq_observation(kind, frames, states, frames + states)
+    initial = torch.log_softmax(
+        torch.linspace(0., -5., states), -1)
+    plain = viterbi.decode_logfreq(observation, frequencies, initial)
+    launches = viterbi.decode_logfreq.launches
+    kernel = viterbi.decode_logfreq(
+        observation.to(device), frequencies, initial.to(device))
+    torch.cuda.synchronize()
+    assert viterbi.decode_logfreq.launches == launches + 1
+    assert kernel.dtype == torch.int32 and kernel.shape == (frames,)
+    np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+def test_logfreq_kernel_keeps_the_first_of_sums_that_round_together(device):
+    """Alphas one float32 step apart whose sums with the floor coincide"""
+    rng = np.random.default_rng(4)
+    observation = torch.zeros(70, 200)
+    observation[0] = -4300.
+    observation[0, 40:52] = torch.from_numpy(
+        np.float32(-4090.) -
+        rng.integers(1, 4, 12) * np.float32(2. ** -12))
+    observation[1:] = torch.from_numpy(
+        np.round(rng.standard_normal((69, 200)))).float()
+    observation[1, 150] = 200.
+    frequencies = np.linspace(50., 8000., 200)
+    initial = torch.zeros(200)
+    plain = viterbi.decode_logfreq(observation, frequencies, initial)
+    kernel = viterbi.decode_logfreq(
+        observation.to(device), frequencies, initial.to(device))
+    assert plain[0] == 43
+    np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+def test_logfreq_kernel_rejects_what_it_does_not_take(device):
+    frequencies = np.linspace(50., 8000., 200)
+    observation = torch.zeros(4, 200, device=device)
+    initial = torch.zeros(200, device=device)
+    with pytest.raises(ValueError, match='float32'):
+        viterbi.decode_logfreq(observation.double(), frequencies, initial)
+    with pytest.raises(ValueError, match='frequencies'):
+        viterbi.decode_logfreq(observation, frequencies[:100], initial)
+    with pytest.raises(ValueError, match='initial'):
+        viterbi.decode_logfreq(observation, frequencies, initial.cpu())
+    # A block's slice of the band table must fit in shared memory
+    with pytest.raises(ValueError, match='too long'):
+        viterbi.decode_logfreq(
+            torch.zeros(2, 6000, device=device),
+            np.linspace(50., 8000., 6000),
+            torch.zeros(6000, device=device))
 
 
 @pytest.mark.parametrize('channels,kernel_size', [

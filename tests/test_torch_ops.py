@@ -148,12 +148,47 @@ def test_grid_of_length_matches_jax():
         rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize('values,mask', [
+    # Interior gaps interpolate linearly
+    ([1., 99., 99., 4., 99., 6.], [True, False, False, True, False, True]),
+    # Edges take the nearest anchor
+    ([99., 2., 4., 99., 99., 99.], [False, True, True, False, False, False]),
+    # One anchor, no anchor, every position an anchor
+    ([5., 7., 9.], [False, True, False]),
+    ([5., 7., 9.], [False, False, False]),
+    ([5., 7., 9.], [True, True, True]),
+    ([3.], [False]),
+])
+def test_masked_interp_matches_jax(values, mask):
+    ours = grid.masked_interp(torch.tensor(values), torch.tensor(mask))
+    theirs = np.asarray(jax_grid.masked_interp(
+        jnp.asarray(values), jnp.asarray(mask)))
+    np.testing.assert_allclose(ours.numpy(), theirs, rtol=0, atol=1e-6)
+    assert ours.dtype == torch.float32
+
+
+def test_masked_interp_matches_jax_on_a_random_contour():
+    rng = np.random.default_rng(8)
+    values = rng.standard_normal(300).astype(np.float32)
+    mask = rng.random(300) > 0.6
+    ours = grid.masked_interp(torch.from_numpy(values), torch.from_numpy(mask))
+    theirs = np.asarray(jax_grid.masked_interp(
+        jnp.asarray(values), jnp.asarray(mask)))
+    np.testing.assert_allclose(ours.numpy(), theirs, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(ours.numpy()[mask], values[mask])
+    np.testing.assert_allclose(
+        ours.numpy(),
+        np.interp(np.arange(300), np.flatnonzero(mask), values[mask]),
+        rtol=1e-5, atol=1e-5)
+
+
 def test_config_matches_jax_package():
     config = port.config.load()
     for name in (
         'HOPSIZE', 'SAMPLE_RATE', 'NUM_FEATURES', 'GLOBAL_CHANNELS',
         'NUM_SPEAKERS', 'INFERENCE_FRAME_BUCKETS', 'LOG_FMIN', 'PRECISION',
         'HIFIGAN_RESBLOCK_KERNEL_SIZES', 'PITCH_ESTIMATOR',
+        'MAX_HARMONICS', 'VOICING_THRESHOLD', 'VITERBI_DECODE_PITCH',
     ):
         assert getattr(config, name) == getattr(promonet_tpu, name), name
     from promonet_tpu.data.collate import bucket_frames
