@@ -14,9 +14,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    The residual block (K1) at every (C, k) of the main path, at the
    main path's shapes (batch 1) and at ragged lengths (batch 4), bounded
    per element by |kernel - plain| <= 2^-5 * (|plain| + 2 * rms(plain)),
-   and the bound must fail once a single bias is zeroed. The Viterbi decode (K2)
-   on a random and a tie-heavy (896, 256) observation, paths equal
-   exactly. The log-frequency Viterbi decode (K3) on random, tie-heavy
+   and the bound must fail once a single bias is zeroed; the same at an
+   odd width (C = 48, k = 7, batch 2), which the wrapper zero-pads, and
+   at lengths shorter than one thread block of the fused pair, ending
+   inside its recomputed halo, and shorter than the halo. The
+   Viterbi decode (K2) on random, tie-heavy, -inf-masked and NaN-frame
+   (896, 256) observations, on one, two and 4096 frames, under an
+   all-equal and a random dense transition (no band) and on a batch of
+   three, paths equal exactly to the plain scan's on the card and on the
+   CPU. The log-frequency Viterbi decode (K3) on random, tie-heavy
    and -inf-masked (861, 2039) observations over the harmonics path's
    frequency axis, on (70, 200) and on one frame, paths equal exactly.
 4. main path, full width (HiFi-GAN 512, 109 speakers), weights seeded
@@ -41,10 +47,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    PITCH_ESTIMATOR='dsp' and stretch_unvoiced=False (12 residual-block
    calls and 1 Viterbi decode each, finite audio of
    round(frames * 1.4) * HOPSIZE samples). Second calls are timed.
-7. kernels: per kernel its launches, error (for the two decodes the
-   largest difference in state index seen in this run's checks), time,
-   plain and library times and the card's bound, then the card's name and power limit,
-   then {"ok": true, "device": ...} as the last line.
+7. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
+   launches per Block, the time at each number of row tiles per thread
+   block, the plain chain's and cuDNN's times and the bound; K2 with the
+   forward pass and the backtrace timed apart, microseconds per frame
+   and the time at 4096 frames; K3 as before. Then per kernel its
+   launches, error (for the two decodes the largest difference in state
+   index seen in this run's checks), time, plain and library times and
+   the card's bound, then the card's name and power limit, then
+   {"ok": true, "device": ...} as the last line.
 
 TF32 is off for every comparison (cuDNN and cuBLAS), so float32 work
 runs in float32.
@@ -221,7 +232,8 @@ def main():
     emit(phase='build', seconds=time.perf_counter() - start,
          ptxas={
              kernel: [line.strip() for line in report.splitlines()
-                      if 'registers' in line or 'spill' in line]
+                      if 'registers' in line or 'spill' in line
+                      or 'warning' in line.lower()]
              for kernel, report in reports.items()})
 
     config = port.config.load()
@@ -240,9 +252,22 @@ def main():
         channels, frames = channels // 2, frames * rate
         shapes.append((frames, channels))
     k1_error = 0.
-    for frames, channels in shapes:
-        for kernel_size in KERNEL_SIZES:
-            for batch, length in ((1, frames), (4, frames // 16 + 37)):
+    # (frames, channels, kernel sizes, (batch, length) pairs): the main
+    # path's shapes with ragged batches, then an odd width
+    k1_checks = [
+        (frames, channels, KERNEL_SIZES,
+         ((1, frames), (4, frames // 16 + 37)))
+        for frames, channels in shapes]
+    k1_checks.append((1000, 48, (7,), ((2, 1000),)))
+    # The fused pair keeps 128 - (k - 1) rows per thread block at 128
+    # channels: a length below one block, one that ends three rows into
+    # the second block (inside the first one's recomputed halo), and one
+    # shorter than the halo itself
+    k1_checks.append((70, 128, (11,), ((2, 70), (2, 121))))
+    k1_checks.append((5, 64, (11,), ((3, 5),)))
+    for frames, channels, kernel_sizes, sizes in k1_checks:
+        for kernel_size in kernel_sizes:
+            for batch, length in sizes:
                 x, weights, biases = block_problem(
                     torch, rng, batch, length, channels, kernel_size, device)
                 plain = resblock.reference_block(
@@ -258,7 +283,7 @@ def main():
                     frames=length, channels=channels,
                     kernel_size=kernel_size,
                     max_abs_err=float(error.max()), within_bound=within)
-                if batch == 4:
+                if batch > 1:
                     broken = biases.clone()
                     broken[5, torch.argmax(broken[5].abs())] = 0.
                     wrong = resblock.fused_block(
@@ -275,24 +300,52 @@ def main():
     transition = viterbi.triangular_transition(256, 9.).to(device)
     initial = torch.full(
         (256,), -float(np.log(np.float32(256))), device=device)
-    observations = {
-        'random': torch.log_softmax(torch.from_numpy(
-            3 * rng.standard_normal((bucket_in, 256))).float(), -1),
-        'ties': torch.from_numpy(np.round(
-            rng.standard_normal((bucket_in, 256)))).float(),
-        'one_frame': torch.zeros(1, 256)}
+    def random_observation(frames):
+        return torch.log_softmax(torch.from_numpy(
+            3 * rng.standard_normal((frames, 256))).float(), -1)
+
+    masked = random_observation(bucket_in)
+    masked[torch.from_numpy(rng.random((bucket_in, 256)) < 0.5)] = \
+        -float('inf')
+    masked[bucket_in // 3] = -float('inf')
+    nan_frame = random_observation(bucket_in)
+    nan_frame[bucket_in // 2] = float('nan')
+    ties = torch.from_numpy(np.round(
+        rng.standard_normal((bucket_in, 256)))).float()
+    all_equal = torch.zeros(256, 256, device=device)
+    random_dense = torch.from_numpy(
+        rng.standard_normal((256, 256))).float().to(device)
+    observations = {'random': random_observation(bucket_in)}
+    # (label, observation, transition)
+    k2_checks = [
+        ('random', observations['random'], transition),
+        ('ties', ties, transition),
+        ('one_frame', torch.zeros(1, 256), transition),
+        ('two_frames', random_observation(2), transition),
+        ('4096_frames', random_observation(4096), transition),
+        ('minus_inf', masked, transition),
+        ('nan_frame', nan_frame, transition),
+        ('all_equal_transition', ties[:300], all_equal),
+        ('random_dense_transition', random_observation(100), random_dense),
+        ('batch_of_3', torch.stack([
+            random_observation(bucket_in), ties, nan_frame]), transition)]
     k2_error = 0
-    for label, observation in observations.items():
-        plain = viterbi.decode(
-            observation, transition.cpu(), initial.cpu()).numpy()
-        on_card_plain = viterbi.backtrace_plain(*viterbi.forward_plain(
-            observation.to(device), transition, initial)).cpu().numpy()
+    for label, observation, matrix in k2_checks:
+        batch = observation if observation.dim() == 3 else observation[None]
+        plain = np.stack([viterbi.decode(
+            sequence, matrix.cpu(), initial.cpu()).numpy()
+            for sequence in batch])
+        on_card_plain = np.stack([
+            viterbi.backtrace_plain(*viterbi.forward_plain(
+                sequence.to(device), matrix, initial)).cpu().numpy()
+            for sequence in batch])
         kernel = viterbi.decode(
-            observation.to(device), transition, initial).cpu().numpy()
+            observation.to(device), matrix, initial).cpu().numpy()
+        kernel = kernel.reshape(plain.shape)
         equal = bool(np.array_equal(kernel, plain) and
                      np.array_equal(kernel, on_card_plain))
         emit(phase='check', kernel='viterbi', observation=label,
-             frames=observation.shape[0], equal=equal,
+             frames=observation.shape[-2], equal=equal,
              mismatches=int((kernel != plain).sum()))
         k2_error = max(
             k2_error, int(np.abs(kernel - plain).max()),
@@ -572,30 +625,61 @@ def main():
             x, weights, biases = block_problem(
                 torch, rng, 1, frames, channels, kernel_size, device)
             launches_before = resblock.fused_block.launches
+            # Packed once, as `models.hifigan.Block` does
+            packed = resblock.pack_weights(weights, biases)
+            ms_by_tiles = {
+                tiles: elapsed_ms(torch, lambda: resblock.fused_block(
+                    x, packed, None, DILATIONS, 0.1, tiles=tiles))
+                for tiles in ((1, 2, 4) if channels <= 64 else (1, 2))}
             times = dict(
                 ms=elapsed_ms(torch, lambda: resblock.fused_block(
-                    x, weights, biases, DILATIONS, 0.1)),
+                    x, packed, None, DILATIONS, 0.1)),
                 plain_ms=elapsed_ms(torch, lambda: resblock.reference_block(
                     x, weights, biases, DILATIONS, 0.1, torch.bfloat16),
-                    repeats=3, warmup=1),
+                    repeats=2, warmup=1),
                 library_ms=elapsed_ms(
                     torch, lambda: library_block(torch, x, weights, biases)))
             resblock.fused_block.launches = launches_before
             bound, kind = block_bound_ms(1, frames, channels, kernel_size)
             bound_by_kind[kind] += bound
+            flops = 2. * frames * channels * channels * kernel_size * 6
             emit(phase='time', kernel='resblock', frames=frames,
                  channels=channels, kernel_size=kernel_size, bound_ms=bound,
-                 bound_by=kind, **times)
+                 bound_by=kind, tflops=flops / times['ms'] / 1e9,
+                 cuda_launches_per_block=resblock.kernel_launches(
+                     channels, DILATIONS),
+                 row_tiles=resblock.choose_tiles(channels),
+                 ms_by_tiles=ms_by_tiles, **times)
             for key, value in times.items():
                 k1[key] += value
             k1['bound_ms'] += bound
 
     observation = observations['random'].to(device)
+    # The analysed transition, as `preprocess.pitch.decode` holds it
+    band = viterbi.banded(transition)
+    launches_before = viterbi.decode.launches
     k2_ms = elapsed_ms(
-        torch, lambda: viterbi.decode(observation, transition, initial))
+        torch, lambda: viterbi.decode(observation, band, initial))
+    k2_forward_ms = elapsed_ms(torch, lambda: viterbi._decode_cuda(
+        observation, band, initial, phases=1))
+    scratch = viterbi._decode_cuda(observation, band, initial, phases=1)
+    k2_backtrace_ms = elapsed_ms(torch, lambda: viterbi._decode_cuda(
+        observation, band, initial, phases=2, scratch=scratch))
+    long_observation = next(
+        observation for label, observation, _ in k2_checks
+        if label == '4096_frames').to(device)
+    k2_long_ms = elapsed_ms(
+        torch, lambda: viterbi.decode(long_observation, band, initial))
+    viterbi.decode.launches = launches_before
     k2_plain_ms = elapsed_ms(
         torch, lambda: viterbi.backtrace_plain(*viterbi.forward_plain(
             observation, transition, initial)), repeats=2, warmup=1)
+    emit(phase='time', kernel='viterbi', frames=observation.shape[0],
+         states=observation.shape[1], ms=k2_ms, forward_ms=k2_forward_ms,
+         backtrace_ms=k2_backtrace_ms, plain_ms=k2_plain_ms,
+         us_per_frame=1e3 * k2_forward_ms / (observation.shape[0] - 1),
+         ms_at_4096_frames=k2_long_ms,
+         band_entries=band.entries, table_in_shared=band.table_in_shared)
     # Operations this data needs: one add and one compare per candidate
     # inside the transition's band (entries at the -1e30 floor never win)
     states = observation.shape[1]

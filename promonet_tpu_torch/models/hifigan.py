@@ -10,7 +10,7 @@ CPU tensors.
 import torch
 from torch import nn
 
-from ..ops.resblock import fused_block
+from ..ops.resblock import fused_block, pack_weights
 from .modules import Conv1d, ConvTranspose1d, leaky_relu
 
 
@@ -31,7 +31,26 @@ class Block(nn.Module):
             2 * len(dilations), kernel_size, channels, channels))
         self.bias = nn.Parameter(torch.empty(2 * len(dilations), channels))
 
+        self._packed = None
+
+    def packed(self):
+        """The parameters packed for the CUDA kernel, made once
+
+        Rebuilt when either parameter was written to (`load_state_dict`,
+        an optimizer step) or lies elsewhere (`.to(device)`).
+        """
+        key = (
+            self.weight.device, self.weight.data_ptr(), self.weight._version,
+            self.bias.data_ptr(), self.bias._version)
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                self._packed = (key, pack_weights(self.weight, self.bias))
+        return self._packed[1]
+
     def forward(self, x, dtype=torch.float32):
+        if x.device.type == 'cuda' and dtype == torch.bfloat16:
+            return fused_block(
+                x.to(dtype), self.packed(), None, self.dilations, self.slope)
         return fused_block(
             x.to(dtype), self.weight.to(dtype), self.bias,
             self.dilations, self.slope)

@@ -10,6 +10,8 @@ card) or per-frame argmax, and refines each decoded bin to sub-bin
 precision. `from_audio` adds the interpolation of pitch through
 unvoiced frames.
 """
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -141,6 +143,24 @@ def posteriorgram(audio, sample_rate, hopsize, fmin, fmax):
     return ncc(audio, sample_rate, hopsize, candidate_frequencies(fmin, fmax))
 
 
+@functools.lru_cache(maxsize=8)
+def decode_constants(num_states, width, device):
+    """Transition and uniform initial distribution of the pitch decode
+
+    Built once per (states, width, device): on a CUDA device the
+    transition comes analysed for the kernel (`viterbi.banded`), so a
+    decode builds nothing on the host and copies nothing to the card.
+    """
+    device = torch.device(device)
+    transition = viterbi.triangular_transition(num_states, width).to(device)
+    if device.type == 'cuda':
+        transition = viterbi.banded(transition)
+    initial = torch.full(
+        (num_states,), -float(np.log(np.float32(num_states))),
+        dtype=torch.float32, device=device)
+    return transition, initial
+
+
 def decode(scores, fmin, fmax, decoder='viterbi', kind='cnn'):
     """Decode front-end scores (frames, N); returns (pitch, periodicity)
 
@@ -161,11 +181,8 @@ def decode(scores, fmin, fmax, decoder='viterbi', kind='cnn'):
     logits = SOFTMAX_SCALE * scores if kind == 'dsp' else scores
     if decoder == 'viterbi':
         observation = torch.log_softmax(logits, dim=-1)
-        transition = viterbi.triangular_transition(
-            num_states, TRANSITION_WIDTH).to(device)
-        initial = torch.full(
-            (num_states,), -float(np.log(np.float32(num_states))),
-            dtype=torch.float32, device=device)
+        transition, initial = decode_constants(
+            num_states, TRANSITION_WIDTH, str(device))
         bins = viterbi.decode(observation, transition, initial).long()
     elif decoder == 'argmax':
         bins = torch.argmax(scores, dim=-1)

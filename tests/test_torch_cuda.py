@@ -62,6 +62,91 @@ def test_viterbi_kernel_breaks_ties_to_the_first_index(device):
     np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
 
 
+def _pitch_observation(kind, frames, seed):
+    rng = np.random.default_rng(seed)
+    observation = torch.log_softmax(torch.from_numpy(
+        3 * rng.standard_normal((frames, 256))).float(), -1)
+    if kind == 'minus_inf':
+        observation[torch.from_numpy(rng.random((frames, 256)) < 0.5)] = \
+            -float('inf')
+        observation[frames // 3] = -float('inf')
+    elif kind == 'nan_frame':
+        observation[frames // 2] = float('nan')
+    elif kind == 'nan_entry':
+        observation[frames // 2, 7] = float('nan')
+    elif kind == 'ties':
+        observation = torch.round(observation)
+    return observation
+
+
+@pytest.mark.parametrize('transition_kind', [
+    'triangular', 'all_equal', 'random_dense'])
+@pytest.mark.parametrize('kind', [
+    'random', 'ties', 'minus_inf', 'nan_frame', 'nan_entry'])
+def test_viterbi_kernel_matches_plain_on_hard_inputs(
+    device, kind, transition_kind
+):
+    """-inf and NaN observations, and transitions with and without a band"""
+    observation = _pitch_observation(kind, 150, len(kind))
+    transition = {
+        'triangular': viterbi.triangular_transition(256, 9.),
+        'all_equal': torch.zeros(256, 256),
+        'random_dense': torch.from_numpy(np.random.default_rng(2)
+                                         .standard_normal((256, 256))).float()
+    }[transition_kind]
+    initial = torch.full((256,), -float(np.log(np.float32(256))))
+    plain = viterbi.decode(observation, transition, initial)
+    kernel = viterbi.decode(
+        observation.to(device), transition.to(device), initial.to(device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize('frames,states', [
+    (4096, 256), (50, 40), (50, 1500), (3, 300)])
+def test_viterbi_kernel_takes_any_length_and_width(device, frames, states):
+    """Long decodes (several backtrace chunks), fewer states than a warp
+    pair, more states than threads (two-byte predecessors)"""
+    rng = np.random.default_rng(frames + states)
+    observation = torch.log_softmax(torch.from_numpy(
+        3 * rng.standard_normal((frames, states))).float(), -1)
+    transition = viterbi.triangular_transition(states, 9.)
+    initial = torch.zeros(states)
+    plain = viterbi.decode(observation, transition, initial)
+    kernel = viterbi.decode(
+        observation.to(device), transition.to(device), initial.to(device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+def test_viterbi_kernel_decodes_a_batch(device):
+    observation = torch.stack([
+        _pitch_observation(kind, 200, 9)
+        for kind in ('random', 'ties', 'nan_frame')])
+    transition = viterbi.triangular_transition(256, 9.)
+    initial = torch.full((256,), -float(np.log(np.float32(256))))
+    plain = viterbi.decode(observation, transition, initial)
+    launches = viterbi.decode.launches
+    band = viterbi.banded(transition.to(device))
+    kernel = viterbi.decode(observation.to(device), band, initial.to(device))
+    torch.cuda.synchronize()
+    assert viterbi.decode.launches == launches + 1
+    assert kernel.shape == (3, 200) and kernel.dtype == torch.int32
+    np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+def test_viterbi_forward_and_backtrace_run_apart(device):
+    observation = _pitch_observation('random', 300, 1).to(device)
+    band = viterbi.banded(viterbi.triangular_transition(256, 9.).to(device))
+    initial = torch.zeros(256, device=device)
+    whole = viterbi.decode(observation, band, initial)
+    scratch = viterbi._decode_cuda(observation, band, initial, phases=1)
+    apart = viterbi._decode_cuda(
+        observation, band, initial, phases=2, scratch=scratch)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(apart.cpu().numpy(), whole.cpu().numpy())
+
+
 def _stft_axis():
     """The harmonics path's frequency axis: 2039 bins from FMIN to Nyquist"""
     frequencies = np.abs(np.fft.fftfreq(4096, 1 / 22050)[:2049])
@@ -167,3 +252,63 @@ def test_resblock_kernel_matches_plain(
     floor = 2 * plain.pow(2).mean().sqrt()
     assert torch.all(
         (kernel - plain).abs() <= 2. ** -5 * (plain.abs() + floor)).item()
+
+
+def _resblock_problem(device, batch, frames, channels, kernel_size):
+    rng = np.random.default_rng(channels + kernel_size + batch + frames)
+    weights = torch.from_numpy(
+        rng.standard_normal((6, kernel_size, channels, channels)) /
+        np.sqrt(kernel_size * channels)).to(device, torch.bfloat16)
+    biases = torch.from_numpy(
+        0.1 * rng.standard_normal((6, channels))).float().to(device)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, frames, channels))).to(device, torch.bfloat16)
+    return x, weights, biases
+
+
+def _within_bound(kernel, plain):
+    floor = 2 * plain.pow(2).mean().sqrt()
+    return torch.all(
+        (kernel - plain).abs() <= 2. ** -5 * (plain.abs() + floor)).item()
+
+
+@pytest.mark.parametrize('tiles', [1, 2, 4])
+@pytest.mark.parametrize('batch,frames,channels,kernel_size', [
+    (2, 1000, 48, 7),     # odd width: zero-padded to 64
+    (2, 300, 200, 3),     # odd width above 128: two tiles of 128
+    (3, 5, 64, 11),       # shorter than the halo
+    (2, 70, 128, 11),     # ends inside the second tile's halo
+    (1, 64, 32, 3),       # exactly one tile
+    (2, 129, 256, 7)])
+def test_resblock_kernel_matches_plain_at_odd_shapes(
+    device, tiles, batch, frames, channels, kernel_size
+):
+    if tiles == 4 and channels > 64:
+        pytest.skip('four row tiles run up to 64 channels')
+    x, weights, biases = _resblock_problem(
+        device, batch, frames, channels, kernel_size)
+    plain = resblock.reference_block(
+        x, weights, biases, DILATIONS, 0.1, torch.bfloat16).float()
+    packed = resblock.pack_weights(weights, biases)
+    kernel = resblock.fused_block(
+        x, packed, None, DILATIONS, 0.1, tiles=tiles).float()
+    torch.cuda.synchronize()
+    assert kernel.shape == plain.shape
+    assert _within_bound(kernel, plain)
+    broken = biases.clone()
+    broken[5, torch.argmax(broken[5].abs())] = 0.
+    wrong = resblock.fused_block(
+        x, weights, broken, DILATIONS, 0.1, tiles=tiles).float()
+    assert not _within_bound(wrong, plain)
+
+
+def test_resblock_kernel_rejects_what_it_does_not_take(device):
+    x, weights, biases = _resblock_problem(device, 1, 40, 32, 3)
+    with pytest.raises(TypeError, match='bfloat16'):
+        resblock.fused_block(x.float(), weights, biases, DILATIONS, 0.1)
+    with pytest.raises(ValueError, match='do not fit'):
+        resblock.fused_block(x, weights[:4], biases[:4], DILATIONS, 0.1)
+    with pytest.raises(ValueError, match='not cuda'):
+        resblock.fused_block(
+            x, resblock.pack_weights(weights.cpu(), biases.cpu()), None,
+            DILATIONS, 0.1)
