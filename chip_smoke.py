@@ -22,9 +22,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (896, 256) observations, on one, two and 4096 frames, under an
    all-equal and a random dense transition (no band) and on a batch of
    three, paths equal exactly to the plain scan's on the card and on the
-   CPU. The log-frequency Viterbi decode (K3) on random, tie-heavy
-   and -inf-masked (861, 2039) observations over the harmonics path's
-   frequency axis, on (70, 200) and on one frame, paths equal exactly.
+   CPU. The log-frequency Viterbi decode (K3) on random, tie-heavy,
+   -inf-masked, NaN-frame and empty-band (861, 2039) observations over
+   the harmonics path's frequency axis, on a batch of two against two
+   single decodes, on (70, 200) (a cluster of one block), on one and two
+   frames, on the same axis through the grid route, and on a 3000-state
+   axis that takes the grid route by the rule, paths equal exactly; the
+   harmonics axis must take the cluster route.
 4. main path, full width (HiFi-GAN 512, 109 speakers), weights seeded
    from numpy: preprocess.from_audio(loudness_bands=None) →
    edit.from_features(+400 cents, stretch 1/1.4, +3 dB) →
@@ -37,8 +41,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    PPG within 1e-3, and the generator's audio from the same features
    within 5% relative RMS (bf16 on the card against float32).
 6. second path, full width, the same 10 s: preprocess.from_audio with
-   'harmonics' (the counters must show MAX_HARMONICS log-frequency
-   decodes, the contours must be (3, frames), finite and within three
+   'harmonics' (the counters must show two log-frequency launches for
+   the MAX_HARMONICS decodes: F0, then the other harmonics as one batch;
+   the contours must be (3, frames), finite and within three
    bins of the signal's harmonics in the median, equal to the contours
    that the plain scan over the dense transition decodes on the card
    from the same 10 s of STFT frames, and on a half-second input equal
@@ -51,7 +56,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    launches per Block, the time at each number of row tiles per thread
    block, the plain chain's and cuDNN's times and the bound; K2 with the
    forward pass and the backtrace timed apart, microseconds per frame
-   and the time at 4096 frames; K3 as before. Then per kernel its
+   and the time at 4096 frames; K3 with its route and cluster size, the
+   forward pass and the backtrace apart, microseconds per frame at 2039
+   and at 200 states, a batch of two, the grid route on the same input,
+   the reading behind the split's cost per destination and the cycles of
+   each section of a frame. Then per
+   kernel its
    launches, error (for the two decodes the largest difference in state
    index seen in this run's checks), time, plain and library times and
    the card's bound, then the card's name and power limit, then
@@ -134,7 +144,8 @@ def harmonic_track(seconds, sample_rate, hopsize):
 
 
 def logfreq_observations(torch, rng, frames, frequencies):
-    """K3 check inputs over one frequency axis: random, tie-heavy, masked
+    """K3 check inputs over one frequency axis: random, tie-heavy, masked,
+    and masked with a NaN frame or an all -inf frame
 
     The masked one is built as `preprocess.harmonics.viterbi` builds the
     second harmonic's: magnitudes kept inside the band 1.8..2.25 times a
@@ -150,13 +161,19 @@ def logfreq_observations(torch, rng, frames, frequencies):
     high = torch.searchsorted(axis, f0 * 2.25)
     columns = torch.arange(states)[None]
     band = (columns >= low[:, None]) & (columns < high[:, None])
+    masked = torch.log_softmax(
+        torch.where(band, magnitudes, -float('inf')), -1)
+    # A frame whose band is empty: all NaN once through the log-softmax,
+    # as the harmonics path makes it, or all -inf
+    nan_frame, empty_band = masked.clone(), masked.clone()
+    nan_frame[frames // 2] = float('nan')
+    empty_band[frames // 3] = -float('inf')
     return {
         'random': torch.log_softmax(torch.from_numpy(
             3 * rng.standard_normal((frames, states))).float(), -1),
         'ties': torch.from_numpy(np.round(
             rng.standard_normal((frames, states)))).float(),
-        'masked': torch.log_softmax(
-            torch.where(band, magnitudes, -float('inf')), -1)}
+        'masked': masked, 'nan_frame': nan_frame, 'empty_band': empty_band}
 
 
 def block_problem(torch, rng, batch, frames, channels, kernel_size, device):
@@ -359,35 +376,70 @@ def main():
         np.zeros((1, 4 * config.HOPSIZE), np.float32), config=config,
         device=device)
     frames_10s = int(10 * config.SAMPLE_RATE) // config.HOPSIZE
-    k3_checks = [
-        (label, observation, stft_axis)
-        for label, observation in logfreq_observations(
-            torch, rng, frames_10s, stft_axis).items()]
+    full = logfreq_observations(torch, rng, frames_10s, stft_axis)
     small_axis = np.linspace(50., 8000., 200)
-    k3_checks.append(('small', logfreq_observations(
-        torch, rng, 70, small_axis)['random'], small_axis))
-    k3_checks.append(('one_frame', logfreq_observations(
-        torch, rng, 1, small_axis)['random'], small_axis))
-    k3_observation = k3_checks[0][1].to(device)
+    long_axis = np.linspace(50., 8000., 3000)
+    # (label, observation, axis, route override)
+    k3_checks = [
+        (label, observation, stft_axis, None)
+        for label, observation in full.items()]
+    k3_checks += [
+        ('batch_of_2', torch.stack([full['random'], full['nan_frame']]),
+         stft_axis, None),
+        ('two_frames', full['random'][:2], stft_axis, None),
+        ('grid_route', full['masked'][:120], stft_axis, 'grid'),
+        ('small', logfreq_observations(
+            torch, rng, 70, small_axis)['random'], small_axis, None),
+        ('one_frame', logfreq_observations(
+            torch, rng, 1, small_axis)['random'], small_axis, None),
+        ('long_axis', logfreq_observations(
+            torch, rng, 40, long_axis)['masked'], long_axis, None)]
+    k3_observation = full['random'].to(device)
+    k3_route = viterbi.logfreq_route(stft_axis, device)
+    k3_routes = {
+        'stft': k3_route,
+        'small': viterbi.logfreq_route(small_axis, device),
+        'long': viterbi.logfreq_route(long_axis, device)}
+    emit(phase='check', kernel='viterbi_logfreq', routes=k3_routes)
+    if k3_route[0] != 'cluster' or k3_routes['small'] != ('cluster', 1) \
+            or k3_routes['long'][0] != 'grid':
+        raise AssertionError(f'viterbi_logfreq routes {k3_routes}')
     k3_error = 0
-    for label, observation, axis in k3_checks:
+    for label, observation, axis, route in k3_checks:
         states = len(axis)
         log_initial = torch.log_softmax(
             torch.linspace(0., -7., states), -1).to(device)
         dense = viterbi.logfreq_transition_dense(axis).to(device)
-        on_card_plain = viterbi.backtrace_plain(*viterbi.forward_plain(
-            observation.to(device), dense, log_initial)).cpu().numpy()
-        kernel = viterbi.decode_logfreq(
-            observation.to(device), axis, log_initial).cpu().numpy()
+        batch = observation if observation.dim() == 3 else observation[None]
+        on_card_plain = np.stack([
+            viterbi.backtrace_plain(*viterbi.forward_plain(
+                sequence.to(device), dense, log_initial)).cpu().numpy()
+            for sequence in batch])
+        routes_before = dict(viterbi.decode_logfreq.routes)
+        if route is None:
+            kernel = viterbi.decode_logfreq(
+                observation.to(device), axis, log_initial)
+        else:
+            kernel = viterbi._decode_logfreq_cuda(
+                observation.to(device), axis, log_initial, 3.5, route=route)
         torch.cuda.synchronize()
+        taken = [name for name, count in viterbi.decode_logfreq.routes.items()
+                 if count > routes_before[name]]
+        kernel = kernel.cpu().numpy().reshape(on_card_plain.shape)
         equal = bool(np.array_equal(kernel, on_card_plain))
+        if label == 'batch_of_2':
+            singles = np.stack([
+                viterbi.decode_logfreq(
+                    sequence.to(device), axis, log_initial).cpu().numpy()
+                for sequence in batch])
+            equal = equal and bool(np.array_equal(kernel, singles))
         if states == 200:
             plain = viterbi.decode_logfreq(
                 observation, axis, log_initial.cpu()).numpy()
-            equal = equal and bool(np.array_equal(kernel, plain))
+            equal = equal and bool(np.array_equal(kernel[0], plain))
         emit(phase='check', kernel='viterbi_logfreq', observation=label,
-             frames=observation.shape[0], states=states, equal=equal,
-             mismatches=int((kernel != on_card_plain).sum()))
+             frames=observation.shape[-2], states=states, route=taken,
+             equal=equal, mismatches=int((kernel != on_card_plain).sum()))
         k3_error = max(k3_error, int(np.abs(kernel - on_card_plain).max()))
         if not equal:
             raise AssertionError('viterbi_logfreq kernel disagrees')
@@ -521,13 +573,15 @@ def main():
         finite = bool(torch.isfinite(contours).all())
         emit(phase='harmonics_path', call=call, seconds=seconds,
              shape=list(contours.shape), finite=finite, bin_hz=bin_hz,
-             median_error_hz=median_error_hz, launches=harmonics_launches)
+             median_error_hz=median_error_hz, launches=harmonics_launches,
+             logfreq_decodes=config.MAX_HARMONICS)
         if tuple(contours.shape) != (config.MAX_HARMONICS, frames_10s) \
                 or not finite or max(median_error_hz) > 3 * bin_hz:
             raise AssertionError('harmonic contours are wrong')
+        # F0, then every other harmonic in one batched launch
         if harmonics_launches != {
                 'resblock': 0, 'viterbi': 1,
-                'viterbi_logfreq': config.MAX_HARMONICS}:
+                'viterbi_logfreq': 1 + (config.MAX_HARMONICS > 1)}:
             raise AssertionError(f'harmonics launches {harmonics_launches}')
     launches['viterbi_logfreq'] = harmonics_launches['viterbi_logfreq']
     harmonics_ms = elapsed_ms(torch, lambda: harmonics_module.from_audio(
@@ -543,6 +597,10 @@ def main():
     dense = viterbi.logfreq_transition_dense(axis).to(device)
 
     def plain_logfreq(observation, frequencies, initial):
+        if observation.dim() == 3:
+            return torch.stack([
+                plain_logfreq(sequence, frequencies, initial)
+                for sequence in observation])
         return viterbi.backtrace_plain(
             *viterbi.forward_plain(observation, dense, initial))
 
@@ -689,50 +747,94 @@ def main():
                      observation.shape[0])
     log_initial = torch.log_softmax(
         torch.linspace(0., -7., len(stft_axis)), -1).to(device)
+    launches_before = viterbi.decode_logfreq.launches
     k3_ms = elapsed_ms(torch, lambda: viterbi.decode_logfreq(
         k3_observation, stft_axis, log_initial))
+    k3_forward_ms = elapsed_ms(torch, lambda: viterbi._decode_logfreq_cuda(
+        k3_observation, stft_axis, log_initial, 3.5, phases=1))
+    scratch = viterbi._decode_logfreq_cuda(
+        k3_observation, stft_axis, log_initial, 3.5, phases=1)
+    k3_backtrace_ms = elapsed_ms(torch, lambda: viterbi._decode_logfreq_cuda(
+        k3_observation, stft_axis, log_initial, 3.5, phases=2,
+        scratch=scratch))
+    k3_pair = torch.stack([k3_observation, k3_observation.flip(0)])
+    k3_pair_ms = elapsed_ms(torch, lambda: viterbi.decode_logfreq(
+        k3_pair, stft_axis, log_initial))
+    k3_grid_ms = elapsed_ms(torch, lambda: viterbi._decode_logfreq_cuda(
+        k3_observation, stft_axis, log_initial, 3.5, route='grid'))
     dense = viterbi.logfreq_transition_dense(stft_axis).to(device)
     k3_plain_ms = elapsed_ms(
         torch, lambda: viterbi.backtrace_plain(*viterbi.forward_plain(
             k3_observation, dense, log_initial)), repeats=2, warmup=1)
+    del dense
     # Operations this data needs: one add and one compare per frame for
     # every (source, destination) pair inside the band table's runs.
-    # Bytes moved once: observation and initial in, predecessors and path
-    # out, the band table with its offsets and first sources in.
+    # Bytes moved once: observation and initial in, two-byte predecessors
+    # and the path out, the band table with its offsets and first sources
+    # in.
     table_values, table_offsets, _, _ = viterbi.band_table(stft_axis)
     k3_frames, k3_states = k3_observation.shape
     k3_ops = 2. * (k3_frames - 1) * len(table_values)
-    k3_bytes = 4. * (
-        k3_frames * k3_states + k3_states + (k3_frames - 1) * k3_states +
-        k3_frames + len(table_values) + len(table_offsets) + k3_states)
+    k3_bytes = (
+        4. * (k3_frames * k3_states + k3_states + k3_frames +
+              len(table_values) + len(table_offsets) + k3_states) +
+        viterbi.logfreq_entry_dtype(k3_states).itemsize *
+        (k3_frames - 1) * k3_states)
     # The same number of frames over 200 states: next to no work per
-    # frame, so what is left is the per-frame latency (barrier, reload)
+    # frame, so what is left is the per-frame latency (two block barriers
+    # and the hand-over of alpha), by cluster size
     narrow_axis = np.linspace(50., 8000., 200)
     narrow = k3_observation[:, :200].contiguous()
+    narrow_initial = log_initial[:200].contiguous()
     k3_narrow_ms = elapsed_ms(torch, lambda: viterbi.decode_logfreq(
-        narrow, narrow_axis, log_initial[:200].contiguous()))
-    # The reading behind `viterbi.RUN_OVERHEAD`, the fixed cost per
-    # destination in the split of the destinations over the blocks: the
-    # same decode with the split by run length alone (0) and with twice
-    # the fixed cost, each on a band table built anew
-    k3_ms_by_run_overhead = {viterbi.RUN_OVERHEAD: k3_ms}
-    run_overhead = viterbi.RUN_OVERHEAD
+        narrow, narrow_axis, narrow_initial))
+    k3_narrow_ms_by_cluster = {
+        blocks: elapsed_ms(torch, lambda: viterbi._decode_logfreq_cuda(
+            narrow, narrow_axis, narrow_initial, 3.5, route=blocks))
+        for blocks in (1, 2, 4)}
+    # The reading behind `viterbi.DESTINATION_ROWS`, the cost of a
+    # destination in table rows when the groups are split over a cluster's
+    # blocks: the same decode with other values, each on a plan built anew
+    k3_ms_by_destination_rows = {viterbi.DESTINATION_ROWS: k3_ms}
+    destination_rows = viterbi.DESTINATION_ROWS
     try:
-        for value in (0, 2 * run_overhead):
-            viterbi.RUN_OVERHEAD = value
-            viterbi._band_table_on.cache_clear()
-            k3_ms_by_run_overhead[value] = elapsed_ms(
+        for value in (0, destination_rows // 4, 4 * destination_rows):
+            viterbi.DESTINATION_ROWS = value
+            viterbi._logfreq_plan_on.cache_clear()
+            k3_ms_by_destination_rows[value] = elapsed_ms(
                 torch, lambda: viterbi.decode_logfreq(
                     k3_observation, stft_axis, log_initial))
     finally:
-        viterbi.RUN_OVERHEAD = run_overhead
-        viterbi._band_table_on.cache_clear()
+        viterbi.DESTINATION_ROWS = destination_rows
+        viterbi._logfreq_plan_on.cache_clear()
+    # Where a frame's time goes: the kernel's counting variant reads the
+    # clock of thread 0 of the cluster's first and last block around each
+    # section of a frame; its path must be the kernel's
+    cycles = torch.zeros(
+        (2, len(viterbi.LOGFREQ_SECTIONS)), dtype=torch.int64, device=device)
+    counted = viterbi._decode_logfreq_cuda(
+        k3_observation, stft_axis, log_initial, 3.5, cycles=cycles)
+    uncounted = viterbi.decode_logfreq(k3_observation, stft_axis, log_initial)
+    torch.cuda.synchronize()
+    if not torch.equal(counted, uncounted):
+        raise AssertionError('the counting variant decodes another path')
+    k3_cycles_per_frame = {
+        block: {
+            name: float(count) / (k3_frames - 1)
+            for name, count in zip(viterbi.LOGFREQ_SECTIONS, row.tolist())}
+        for block, row in zip(('first_block', 'last_block'), cycles.cpu())}
+    viterbi.decode_logfreq.launches = launches_before
     emit(phase='time', kernel='viterbi_logfreq', frames=k3_frames,
-         states=k3_states, in_band_pairs=len(table_values), ms=k3_ms,
+         states=k3_states, in_band_pairs=len(table_values),
+         route=k3_route[0], cluster_blocks=k3_route[1], ms=k3_ms,
+         forward_ms=k3_forward_ms, backtrace_ms=k3_backtrace_ms,
+         batch_of_2_ms=k3_pair_ms, grid_route_ms=k3_grid_ms,
          plain_ms=k3_plain_ms, operations=k3_ops, bytes=k3_bytes,
          ms_at_200_states=k3_narrow_ms,
-         ms_by_run_overhead=k3_ms_by_run_overhead,
-         us_per_frame=1e3 * k3_ms / (k3_frames - 1),
+         ms_at_200_states_by_cluster_blocks=k3_narrow_ms_by_cluster,
+         ms_by_destination_rows=k3_ms_by_destination_rows,
+         cycles_per_frame=k3_cycles_per_frame,
+         us_per_frame=1e3 * k3_forward_ms / (k3_frames - 1),
          us_per_frame_at_200_states=1e3 * k3_narrow_ms / (k3_frames - 1))
     kernels = [
         dict(name='resblock', route='cuda',

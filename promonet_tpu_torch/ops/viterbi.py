@@ -15,7 +15,10 @@ the log-frequency locality transition of `logfreq_transition_dense`. For
 a CUDA tensor it runs `csrc/viterbi_logfreq.cu`, which replaces the
 Pallas kernel `_logfreq_forward_kernel` (its `pallas_call` is at
 `_logfreq_forward_pallas`) and reads the transition from a band table
-(`band_table`) built once per frequency axis; for a CPU tensor it runs
+(`band_table`) built once per frequency axis and packed for the kernel
+(`cluster_plan`): one thread block cluster decodes one sequence, a batch
+is one launch. An axis whose table fits no cluster takes the kernel's
+grid route (`_logfreq_plan_on` holds the rule). For a CPU tensor it runs
 the plain forward pass over the dense matrix. Paths are bit-identical
 here too.
 """
@@ -325,17 +328,41 @@ def _function():
 # Probability floor of a move between bins too far apart
 LOGFREQ_FLOOR = 1e-12
 
-# Launch geometry of `csrc/viterbi_logfreq.cu`: one warp scans one
-# destination's run, and a destination costs about as much as
-# RUN_OVERHEAD further warp steps for its reduction and its stores.
-# `chip_smoke.py` times the decode with this value, with 0 (split by
-# run length alone, 1.7 times slower on an H100 at 2039 states) and
-# with twice the value (within 2%)
+# Geometry of the cluster route of `csrc/viterbi_logfreq.cu`: one thread
+# block cluster decodes one sequence. Destinations are taken GROUP at a
+# time (one 16-byte table load serves a source row of a whole group), a
+# group's rows are cut into segments of one thread each, and a thread keeps
+# the first REGISTER_ROWS rows of its segment in registers for the whole
+# decode and the rest in shared memory. A block has at most CLUSTER_THREADS
+# threads, so that each may take 128 registers. LOGFREQ_RING observation
+# rows are in flight.
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+CLUSTER_THREADS = 512
+GROUP = 4
+REGISTER_ROWS = 12
+LOGFREQ_RING = 4
+
+# The route rule takes the smallest cluster whose threads scan at most
+# this many rows each; where none does, the largest that fits
+SEGMENT_TARGET = 13
+
+# Split of the groups over a cluster's blocks: a destination costs a block
+# about as much as this many table rows (its share of the second phase of
+# a frame: combining the segments' results, the stores to every block).
+# `chip_smoke.py` times the decode with this value, with 0, with a quarter
+# and with four times the value
+DESTINATION_ROWS = 8
+
+# Geometry of the grid route (the cooperative kernel for axes that fit no
+# cluster): one warp scans one destination's run, and a destination costs
+# about as much as RUN_OVERHEAD further warp steps for its reduction and
+# its stores (8 measured best on an H100 at 2039 states while that axis
+# took this route: 1.7 times faster than 0, within 3% of 16)
 WARP = 32
 RUN_OVERHEAD = 8
 
-# Dynamic shared memory a block may take for the alpha vector, its
-# observations and its slice of the band table (a Hopper block has 227 KB)
+# Dynamic shared memory a block of the grid route may take for the alpha
+# vector, its observations and its slice of the band table
 SHARED_BUDGET = 160 * 1024
 
 
@@ -360,26 +387,36 @@ def decode_logfreq(observation, frequencies, initial, locality=3.5):
     Equal to `decode(observation, logfreq_transition_dense(frequencies),
     initial)`, for state spaces whose dense transition is too large to
     stream every frame (16.6 MB at the 2039 bins of the harmonics decode).
+    On the card a batch is one launch, one thread block cluster per
+    sequence (see `logfreq_route` for the axes that take the grid route,
+    one launch per sequence).
 
     Arguments
-        observation: (T, N) log-probability frames; -inf entries allowed
+        observation: (T, N) log-probability frames, or (B, T, N); -inf
+            entries allowed
         frequencies: (N,) static frequency axis in Hz (numpy or tensor)
         initial: (N,) log initial distribution
 
     Returns
-        path: (T,) int32 state indices
+        path: (T,) or (B, T) int32 state indices
     """
     if observation.device.type == 'cpu':
         transition = logfreq_transition_dense(frequencies, locality)
-        indices, final_alpha = forward_plain(observation, transition, initial)
-        return backtrace_plain(indices, final_alpha)
+        if observation.dim() == 3:
+            return torch.stack([
+                backtrace_plain(*forward_plain(sequence, transition, initial))
+                for sequence in observation])
+        return backtrace_plain(
+            *forward_plain(observation, transition, initial))
     if observation.device.type == 'cuda':
         return _decode_logfreq_cuda(
             observation, frequencies, initial, locality)
     raise ValueError(f'No Viterbi decode for device {observation.device}')
 
 
+# Kernel launches, and how many of them took each route
 decode_logfreq.launches = 0
+decode_logfreq.routes = {'cluster': 0, 'grid': 0}
 
 
 def band_table(frequencies, locality=3.5):
@@ -401,30 +438,244 @@ def band_table(frequencies, locality=3.5):
     return values, offsets.astype(np.int32), lows.astype(np.int32), floor
 
 
+def logfreq_entry_dtype(num_states):
+    """The narrowest predecessor of the cluster route that holds a state"""
+    return torch.int16 if num_states <= 2 ** 15 else torch.int32
+
+
+def _split(cost, parts):
+    """Cut a sequence into `parts` contiguous ranges of about equal cost
+
+    Returns starts (parts + 1,) int64; a range may be empty.
+    """
+    total = np.cumsum(cost)
+    if not len(total):
+        return np.zeros(parts + 1, np.int64)
+    targets = total[-1] * np.arange(1, parts) / parts
+    inner = np.searchsorted(total, targets, side='left') + 1
+    return np.concatenate(
+        [[0], np.minimum(inner, len(total)), [len(total)]]).astype(np.int64)
+
+
 def partition_destinations(offsets, blocks):
     """Split the destinations into `blocks` contiguous ranges of equal work
 
-    Returns starts (blocks + 1,) int32; block b decodes the destinations
-    starts[b]:starts[b + 1].
+    For the grid route. Returns starts (blocks + 1,) int32; block b decodes
+    the destinations starts[b]:starts[b + 1].
     """
     lengths = np.diff(offsets.astype(np.int64))
-    cost = np.cumsum(-(-lengths // WARP) + RUN_OVERHEAD)
-    targets = cost[-1] * np.arange(1, blocks) / blocks
-    inner = np.searchsorted(cost, targets, side='left') + 1
-    starts = np.concatenate(
-        [[0], np.minimum(inner, len(lengths)), [len(lengths)]])
-    return starts.astype(np.int32)
+    return _split(-(-lengths // WARP) + RUN_OVERHEAD, blocks).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=8)
-def _band_table_on(device, frequencies_bytes, locality):
-    """Band table and launch geometry on `device`, built once per axis"""
-    frequencies = np.frombuffer(frequencies_bytes, np.float64)
-    values, offsets, lows, floor = band_table(frequencies, locality)
-    device = torch.device(device)
-    blocks = max(1, min(
-        torch.cuda.get_device_properties(device).multi_processor_count,
-        len(lows)))
+def group_rows(offsets, lows):
+    """Source rows of each group of GROUP neighbouring destinations
+
+    Returns first (G,) and rows (G,) int64: group g scans the sources
+    first[g]:first[g] + rows[g], the union of its destinations' runs. A
+    source inside the union and outside a destination's own run scores
+    that destination's dense entry, the floor.
+    """
+    offsets, lows = offsets.astype(np.int64), lows.astype(np.int64)
+    num_states = len(lows)
+    lengths = np.diff(offsets)
+    groups = -(-num_states // GROUP)
+    padding = groups * GROUP - num_states
+    first = np.concatenate([
+        np.where(lengths > 0, lows, num_states),
+        np.full(padding, num_states)]).reshape(groups, GROUP).min(axis=1)
+    last = np.concatenate([
+        np.where(lengths > 0, lows + lengths, 0),
+        np.zeros(padding, np.int64)]).reshape(groups, GROUP).max(axis=1)
+    rows = np.maximum(last - first, 0)
+    return np.where(rows > 0, first, 0), rows
+
+
+def _segment_rows(rows, threads):
+    """Smallest odd segment length that cuts `rows` into <= threads parts"""
+    if (rows > 0).sum() > threads:
+        raise ValueError('More groups of destinations than threads')
+    length = 1
+    while (-(-rows // length)).sum() > threads:
+        length += 2
+    return length
+
+
+def cluster_plan(values, offsets, lows, floor, blocks, threads=None):
+    """Launch geometry and packed table of the cluster route
+
+    The groups (see `group_rows`) are split over the `blocks` thread
+    blocks of a cluster, contiguously and by cost (table rows plus
+    DESTINATION_ROWS per destination). Inside a block each group's rows
+    are cut into segments of an odd length (so that neighbouring threads
+    read neighbouring banks), one thread each: thread t of group g scans
+    the sources src:src + length for the group's destinations. A
+    segment's rectangle is padded with -inf, which never wins a strict
+    '>'. Its first REGISTER_ROWS rows go to `register_rows`, the rest to
+    the block's `image` of shared memory, row-major over the group's
+    segments so that a warp reads consecutive 16-byte words.
+
+    Returns a dict of
+        items (blocks, threads, 4) int32: src, length, index of the
+            thread's first row in the image, the image's row stride
+        register_rows (blocks, REGISTER_ROWS, threads, GROUP) float32
+        image (blocks, table_rows, GROUP) float32
+        group_meta (blocks, max_groups, 2) int32: a group's first thread
+            and its number of segments
+        block_info (blocks, 4) int32: first destination, destinations,
+            lanes that share a destination in the second phase, groups
+        starts (blocks + 1,) first group of each block
+        segment_rows (blocks,) longest segment of each block
+        blocks, threads, table_rows, alpha_stride, ring_stride,
+        max_groups, predecessor_stride, shared_bytes, and frame_bytes, the
+        bytes of new alpha that reach a block each frame
+    and raises ValueError where a block's share does not fit its shared
+    memory (DECODE_SHARED_LIMIT).
+    """
+    offsets64, lows64 = offsets.astype(np.int64), lows.astype(np.int64)
+    num_states = len(lows)
+    lengths = np.diff(offsets64)
+    first, rows = group_rows(offsets, lows)
+    starts = _split(rows + DESTINATION_ROWS * GROUP, blocks)
+    if threads is None:
+        # As many threads as the busiest block has rows or destinations
+        busiest = max(
+            max(int(rows[a:b].sum()), int(b - a) * GROUP)
+            for a, b in zip(starts[:-1], starts[1:]))
+        threads = int(min(CLUSTER_THREADS, max(128, -(-busiest // 32) * 32)))
+
+    geometry = []
+    for a, b in zip(starts[:-1], starts[1:]):
+        block_rows = rows[a:b]
+        longest = _segment_rows(block_rows, threads)
+        segments = -(-block_rows // longest)
+        length = -(-block_rows // np.maximum(segments, 1))
+        length = length + (length % 2 == 0) * (length > 0)
+        segments = -(-block_rows // np.maximum(length, 1))
+        geometry.append((int(a), int(b), segments, length))
+
+    max_groups = max(1, max(b - a for a, b, _, _ in geometry))
+    table_rows = max(1, max(
+        int((segments * np.maximum(length - REGISTER_ROWS, 0)).sum())
+        for _, _, segments, length in geometry))
+    max_destinations = max(
+        min(b * GROUP, num_states) - min(a * GROUP, num_states)
+        for a, b, _, _ in geometry)
+    # Sources a padded segment reads past the axis
+    overshoot = max(
+        [0] + [int((first[a:b] + (segments - 1) * length + np.maximum(
+            length, REGISTER_ROWS)).max()) - num_states
+               for a, b, segments, length in geometry if b > a])
+    alpha_stride = -(-(num_states + max(overshoot, 0)) // 4) * 4
+    ring_stride = max(4, -(-max_destinations // 4) * 4)
+    predecessor_stride = -(-num_states // 8) * 8
+    shared_bytes = (
+        16 * table_rows + 4 * 2 * alpha_stride + 8 * GROUP * threads +
+        4 * (LOGFREQ_RING + 2) * ring_stride + 8 * max_groups)
+    shared_bytes = -(-max(shared_bytes, 2 * predecessor_stride) // 16) * 16
+    if shared_bytes > DECODE_SHARED_LIMIT \
+            or logfreq_entry_dtype(num_states) != torch.int16:
+        raise ValueError(
+            f'A cluster of {blocks} blocks cannot hold the band table of '
+            f'{num_states} states ({shared_bytes} bytes of shared memory a '
+            'block)')
+
+    items = np.zeros((blocks, threads, 4), np.int32)
+    register_rows = np.full(
+        (blocks, REGISTER_ROWS, threads, GROUP), -np.inf, np.float32)
+    image = np.full((blocks, table_rows, GROUP), -np.inf, np.float32)
+    group_meta = np.zeros((blocks, max_groups, 2), np.int32)
+    block_info = np.zeros((blocks, 4), np.int32)
+    for block, (a, b, segments, length) in enumerate(geometry):
+        thread = image_row = 0
+        for g in range(a, b):
+            count, rows_each = int(segments[g - a]), int(length[g - a])
+            group_meta[block, g - a] = thread, count
+            if not count:
+                continue
+            # The dense entries of the group's rows, -inf past them
+            rectangle = np.full(
+                (count * rows_each, GROUP), -np.inf, np.float32)
+            rectangle[:rows[g]] = floor
+            for d in range(GROUP):
+                j = g * GROUP + d
+                if j < num_states and lengths[j]:
+                    begin = lows64[j] - first[g]
+                    rectangle[begin:begin + lengths[j], d] = values[
+                        offsets64[j]:offsets64[j + 1]]
+            rectangle = rectangle.reshape(count, rows_each, GROUP)
+            held = min(rows_each, REGISTER_ROWS)
+            register_rows[block, :held, thread:thread + count] = \
+                rectangle[:, :held].transpose(1, 0, 2)
+            rest = rows_each - held
+            items[block, thread:thread + count, 0] = \
+                first[g] + rows_each * np.arange(count)
+            items[block, thread:thread + count, 1] = rows_each
+            items[block, thread:thread + count, 2] = \
+                image_row + np.arange(count)
+            items[block, thread:thread + count, 3] = count
+            image[block, image_row:image_row + rest * count] = \
+                rectangle[:, held:].transpose(1, 0, 2).reshape(-1, GROUP)
+            thread += count
+            image_row += rest * count
+        first_destination = min(a * GROUP, num_states)
+        destinations = min(b * GROUP, num_states) - first_destination
+        # Lanes that share a destination when the segments' results are
+        # combined: as many as the block's threads allow, and no more
+        # than the longest list of segments needs
+        lanes = 1
+        while lanes < 32 and 2 * lanes * destinations <= threads \
+                and lanes < int(segments.max(initial=0)):
+            lanes *= 2
+        block_info[block] = first_destination, destinations, lanes, b - a
+    return dict(
+        items=items, register_rows=register_rows, image=image,
+        group_meta=group_meta, block_info=block_info, starts=starts,
+        segment_rows=np.array(
+            [int(length.max(initial=0)) for _, _, _, length in geometry]),
+        blocks=blocks, threads=threads, table_rows=table_rows,
+        alpha_stride=alpha_stride, ring_stride=ring_stride,
+        max_groups=max_groups, predecessor_stride=predecessor_stride,
+        # Every block's destinations in 16-byte pieces
+        frame_bytes=int(16 * (-(-block_info[:, 1] // GROUP)).sum()),
+        shared_bytes=int(shared_bytes))
+
+
+def plan_dense(plan, num_states, floor):
+    """The dense matrix that a cluster plan's packed table stands for"""
+    dense = np.full((num_states, num_states), floor, np.float32)
+    for block in range(plan['blocks']):
+        first_destination, _, _, groups = plan['block_info'][block]
+        for g in range(groups):
+            thread, count = plan['group_meta'][block, g]
+            j = first_destination + g * GROUP
+            width = min(GROUP, num_states - j)
+            for t in range(thread, thread + count):
+                src, length, row, stride = plan['items'][block, t]
+                for r in range(length):
+                    entries = plan['register_rows'][block, r, t] \
+                        if r < REGISTER_ROWS else plan['image'][
+                            block, row + (r - REGISTER_ROWS) * stride]
+                    # -inf pads a segment's rectangle past the group's rows
+                    if entries[0] != -np.inf:
+                        dense[src + r, j:j + width] = entries[:width]
+    return dense
+
+
+def choose_cluster(plans):
+    """The route rule among cluster plans {blocks: plan} that fit
+
+    The smallest cluster whose threads scan at most SEGMENT_TARGET rows
+    each; where none does, the largest.
+    """
+    for blocks in sorted(plans):
+        if plans[blocks]['segment_rows'].max(initial=0) <= SEGMENT_TARGET:
+            return blocks
+    return max(plans)
+
+
+def grid_plan(offsets, lows, blocks):
+    """Launch geometry of the grid route; raises where a slice does not fit"""
+    blocks = max(1, min(blocks, len(lows)))
     starts = partition_destinations(offsets, blocks)
     max_destinations = int(np.diff(starts).max())
     max_slice = int(np.diff(offsets[starts].astype(np.int64)).max())
@@ -433,16 +684,103 @@ def _band_table_on(device, frequencies_bytes, locality):
             f'The log-frequency Viterbi kernel keeps all {len(lows)} states '
             "and a block's slice of the band table in shared memory; this "
             'axis is too long')
-    tensors = tuple(
-        torch.from_numpy(array).to(device)
-        for array in (values, offsets, lows, starts))
-    return tensors, float(floor), blocks, max_destinations, max_slice
+    return dict(
+        starts=starts, blocks=blocks, max_destinations=max_destinations,
+        max_slice=max_slice)
 
 
-def _decode_logfreq_cuda(observation, frequencies, initial, locality):
-    num_frames, num_states = observation.shape
+@functools.lru_cache(maxsize=8)
+def _logfreq_plan_on(device, frequencies_bytes, locality, route):
+    """Route, launch geometry and table on `device`, built once per axis
+
+    The route rule. An axis takes the cluster route where the card has
+    thread block clusters (compute capability 9 or above), a plan of one
+    of CLUSTER_SIZES fits a block's shared memory (`cluster_plan`) and
+    the card reports that it can place such a cluster
+    (cudaOccupancyMaxActiveClusters); among those `choose_cluster`
+    decides. Every other axis takes the grid route, and raises where that
+    does not fit either. `route` overrides the rule for the checks:
+    'grid', or the number of blocks of the cluster.
+    """
+    frequencies = np.frombuffer(frequencies_bytes, np.float64)
+    values, offsets, lows, floor = band_table(frequencies, locality)
+    device = torch.device(device)
+    properties = torch.cuda.get_device_properties(device)
+
+    plans = {}
+    if route != 'grid' and properties.major >= 9:
+        for blocks in CLUSTER_SIZES if route is None else (route,):
+            try:
+                plan = cluster_plan(values, offsets, lows, floor, blocks)
+            except ValueError:
+                continue
+            with torch.cuda.device(device):
+                placeable = _logfreq_library().viterbi_logfreq_max_clusters(
+                    blocks, plan['threads'], plan['shared_bytes'])
+            if placeable < 0:
+                _build.check(-placeable, 'viterbi_logfreq')
+            if placeable > 0:
+                plans[blocks] = plan
+    if plans:
+        plan = plans[choose_cluster(plans)]
+        plan['route'] = 'cluster'
+        for name in ('items', 'register_rows', 'image', 'group_meta',
+                     'block_info'):
+            plan[name] = torch.from_numpy(plan[name]).to(device)
+    elif route in (None, 'grid'):
+        plan = grid_plan(offsets, lows, properties.multi_processor_count)
+        plan['route'] = 'grid'
+        plan['tensors'] = tuple(
+            torch.from_numpy(array).to(device)
+            for array in (values, offsets, lows, plan['starts']))
+    else:
+        raise ValueError(
+            f'A cluster of {route} blocks cannot decode {len(lows)} states '
+            f'on {properties.name}')
+    plan['floor'] = float(floor)
+    return plan
+
+
+def logfreq_route(frequencies, device='cuda', locality=3.5):
+    """('cluster', blocks in the cluster) or ('grid', blocks in the grid):
+    how `decode_logfreq` decodes this axis on `device`"""
+    frequencies = _as_numpy(frequencies).astype(np.float64)
+    plan = _logfreq_plan_on(
+        str(torch.device(device)), frequencies.tobytes(), float(locality),
+        None)
+    return plan['route'], plan['blocks']
+
+
+# Sections of a frame of the cluster route whose cycles the kernel counts
+# on request
+LOGFREQ_SECTIONS = (
+    'wait_for_alpha', 'phase_1', 'barrier_1', 'phase_2', 'barrier_2',
+    'copies')
+
+
+def _decode_logfreq_cuda(
+    observation, frequencies, initial, locality, phases=3, scratch=None,
+    route=None, cycles=None
+):
+    """Launch `csrc/viterbi_logfreq.cu`
+
+    `phases` and `scratch` as in `_decode_cuda` (cluster route only);
+    `route` overrides the route rule, for the checks. `cycles`, a
+    (2, len(LOGFREQ_SECTIONS)) int64 tensor on the device, makes the
+    cluster route run its counting variant: thread 0's cycles in each
+    section of a frame, summed over the frames after the first, for the
+    first and the last block of the first sequence's cluster.
+    """
+    batched = observation.dim() == 3
+    if not batched:
+        observation = observation[None]
+    if observation.dim() != 3:
+        raise ValueError(
+            f'Viterbi decode takes (T, N) or (B, T, N); got '
+            f'{tuple(observation.shape)}')
+    batch, num_frames, num_states = observation.shape
     for name, tensor, shape in (
-        ('observation', observation, (num_frames, num_states)),
+        ('observation', observation, (batch, num_frames, num_states)),
         ('initial', initial, (num_states,)),
     ):
         if tensor.dtype != torch.float32 or tuple(tensor.shape) != shape \
@@ -451,25 +789,90 @@ def _decode_logfreq_cuda(observation, frequencies, initial, locality):
                 f'Viterbi kernel takes float32 {name} of shape {shape} on '
                 f'{observation.device}; got {tensor.dtype} '
                 f'{tuple(tensor.shape)} on {tensor.device}')
-    if num_frames < 1:
+    if num_frames < 1 or batch < 1:
         raise ValueError('Viterbi decode needs at least one frame')
     frequencies = _as_numpy(frequencies).astype(np.float64)
     if frequencies.shape != (num_states,):
         raise ValueError(
             f'Viterbi decode over {num_states} states needs as many '
             f'frequencies; got {frequencies.shape}')
-    (values, offsets, lows, starts), floor, blocks, max_destinations, \
-        max_slice = _band_table_on(
-            str(observation.device), frequencies.tobytes(), float(locality))
+    plan = _logfreq_plan_on(
+        str(observation.device), frequencies.tobytes(), float(locality),
+        route)
     observation = observation.contiguous()
     initial = initial.contiguous()
+    if plan['route'] == 'grid':
+        if phases != 3:
+            raise ValueError('The grid route decodes in one piece')
+        path = torch.stack([
+            _launch_logfreq_grid(sequence, initial, plan)
+            for sequence in observation])
+        return path if batched else path[0]
+
+    device = observation.device
+    if scratch is None:
+        scratch = (
+            torch.empty(
+                (batch, num_frames, plan['predecessor_stride']),
+                dtype=logfreq_entry_dtype(num_states), device=device),
+            torch.empty((batch, num_frames), dtype=torch.int32, device=device))
+    predecessors, path = scratch
+    if cycles is None:
+        cycles = torch.empty(0, dtype=torch.int64, device=device)  # null
+    elif cycles.dtype != torch.int64 or cycles.device != device \
+            or tuple(cycles.shape) != (2, len(LOGFREQ_SECTIONS)) \
+            or not cycles.is_contiguous():
+        raise ValueError(
+            f'cycles is a contiguous (2, {len(LOGFREQ_SECTIONS)}) int64 '
+            f'tensor on {device}')
+    function = _logfreq_library().viterbi_logfreq_cluster_decode
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = function(
+            observation.data_ptr(),
+            initial.data_ptr(),
+            plan['register_rows'].data_ptr(),
+            plan['image'].data_ptr(),
+            plan['items'].data_ptr(),
+            plan['group_meta'].data_ptr(),
+            plan['block_info'].data_ptr(),
+            predecessors.data_ptr(),
+            path.data_ptr(),
+            batch,
+            num_frames,
+            num_states,
+            plan['predecessor_stride'],
+            plan['blocks'],
+            plan['threads'],
+            plan['table_rows'],
+            plan['alpha_stride'],
+            plan['ring_stride'],
+            plan['max_groups'],
+            plan['frame_bytes'],
+            plan['floor'],
+            phases,
+            plan['shared_bytes'],
+            cycles.data_ptr(),
+            stream)
+    _build.check(status, 'viterbi_logfreq')
+    decode_logfreq.launches += 1
+    decode_logfreq.routes['cluster'] += 1
+    if phases == 1:
+        return scratch
+    return path if batched else path[0]
+
+
+def _launch_logfreq_grid(observation, initial, plan):
+    """One sequence through the cooperative kernel of the grid route"""
+    num_frames, num_states = observation.shape
+    values, offsets, lows, starts = plan['tensors']
     device = observation.device
     alpha = torch.empty((2, num_states), dtype=torch.float32, device=device)
     counter = torch.zeros(1, dtype=torch.int32, device=device)
     predecessors = torch.empty(
         (num_frames, num_states), dtype=torch.int32, device=device)
     path = torch.empty(num_frames, dtype=torch.int32, device=device)
-    function = _logfreq_function()
+    function = _logfreq_library().viterbi_logfreq_decode
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         status = function(
@@ -485,22 +888,31 @@ def _decode_logfreq_cuda(observation, frequencies, initial, locality):
             path.data_ptr(),
             num_frames,
             num_states,
-            blocks,
-            max_destinations,
-            max_slice,
-            floor,
+            plan['blocks'],
+            plan['max_destinations'],
+            plan['max_slice'],
+            plan['floor'],
             stream)
     _build.check(status, 'viterbi_logfreq')
     decode_logfreq.launches += 1
+    decode_logfreq.routes['grid'] += 1
     return path
 
 
-def _logfreq_function():
-    function = _build.library('viterbi_logfreq').viterbi_logfreq_decode
-    function.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    function.restype = ctypes.c_int
-    return function
+@functools.lru_cache(maxsize=None)
+def _logfreq_library():
+    library = _build.library('viterbi_logfreq')
+    library.viterbi_logfreq_decode.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    library.viterbi_logfreq_decode.restype = ctypes.c_int
+    library.viterbi_logfreq_cluster_decode.argtypes = [
+        ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    library.viterbi_logfreq_cluster_decode.restype = ctypes.c_int
+    library.viterbi_logfreq_max_clusters.argtypes = [ctypes.c_int] * 3
+    library.viterbi_logfreq_max_clusters.restype = ctypes.c_int
+    return library
 
 
 def _as_numpy(array):

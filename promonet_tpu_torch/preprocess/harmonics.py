@@ -118,9 +118,10 @@ def viterbi(
     The fundamental is decoded over the whole axis under a low-frequency
     bias (or given as `pitch`); harmonic i is then decoded over the band
     F0 * (i + ratio) .. F0 * (i + 1 / ratio) of each frame, everything
-    else masked to -inf. A frame whose band is empty has an all-NaN
-    log-softmax; the decode then takes NaN as the maximum, as the JAX
-    package's does.
+    else masked to -inf. The bands depend on F0 alone, so the harmonics
+    above it are decoded as one batch (one kernel launch on the card). A
+    frame whose band is empty has an all-NaN log-softmax; the decode then
+    takes NaN as the maximum, as the JAX package's does.
 
     Arguments
         frames: (T, N) float32 tensor of analysis features
@@ -141,41 +142,38 @@ def viterbi(
     log_initial = torch.log(torch.clamp(initial, min=1e-12))
 
     def decode(observation):
-        return viterbi_ops.decode_logfreq(
-            torch.log_softmax(observation, dim=-1), frequencies, log_initial)
+        """Contours in Hz of one (T, N) observation or a (B, T, N) batch"""
+        return axis[viterbi_ops.decode_logfreq(
+            torch.log_softmax(observation, dim=-1), frequencies,
+            log_initial).long()]
 
-    def mask(low_hz, high_hz):
-        low = torch.searchsorted(axis, low_hz.contiguous())
-        high = torch.searchsorted(axis, high_hz.contiguous())
+    def mask(i, f0):
+        """The frames outside harmonic i's band around `f0` set to -inf"""
+        low = torch.searchsorted(
+            axis, (f0 * (i + harmonic_width_ratio)).contiguous())
+        high = torch.searchsorted(
+            axis, (f0 * (i + 1. / harmonic_width_ratio)).contiguous())
         columns = torch.arange(num_states, device=device)[None, :]
         in_band = (columns >= low[:, None]) & (columns < high[:, None])
         return torch.where(in_band, frames, -float('inf'))
 
     harmonics = torch.full(
         (max_harmonics, num_frames), float('nan'), device=device)
+    if max_harmonics < 1:
+        return harmonics
 
-    i = 0
     if pitch is not None:
-        f0 = torch.as_tensor(pitch, dtype=torch.float32).to(device).reshape(-1)
-        harmonics[0] = f0
-        i = 1
-        observation = mask(
-            f0 * (1. + harmonic_width_ratio),
-            f0 * (1. + 1. / harmonic_width_ratio))
+        harmonics[0] = torch.as_tensor(
+            pitch, dtype=torch.float32).to(device).reshape(-1)
     else:
         # Low-frequency bias
-        observation = frames + .5 * torch.arange(
-            num_states, 0, -1, device=device)
+        harmonics[0] = decode(frames + .5 * torch.arange(
+            num_states, 0, -1, device=device))
 
-    while i < max_harmonics:
-        harmonics[i] = axis[decode(observation).long()]
-        i += 1
-        if i == max_harmonics:
-            break
-        f0 = harmonics[0]
-        observation = mask(
-            f0 * (i + harmonic_width_ratio),
-            f0 * (i + 1. / harmonic_width_ratio))
+    # Every further harmonic's band depends on F0 alone: one batch
+    if max_harmonics > 1:
+        harmonics[1:] = decode(torch.stack([
+            mask(i, harmonics[0]) for i in range(1, max_harmonics)]))
 
     return harmonics
 

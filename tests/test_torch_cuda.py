@@ -161,7 +161,7 @@ def _logfreq_observation(kind, frames, states, seed):
             np.round(rng.standard_normal((frames, states)))).float()
     logits = torch.from_numpy(
         3 * rng.standard_normal((frames, states))).float()
-    if kind in ('masked', 'nan'):
+    if kind in ('masked', 'nan', 'empty'):
         low = torch.from_numpy(rng.integers(0, states - 30, frames))[:, None]
         columns = torch.arange(states)[None]
         logits = torch.where(
@@ -169,10 +169,12 @@ def _logfreq_observation(kind, frames, states, seed):
     observation = torch.log_softmax(logits, -1)
     if kind == 'nan':
         observation[frames // 2] = float('nan')
+    if kind == 'empty':
+        observation[frames // 3] = -float('inf')
     return observation
 
 
-@pytest.mark.parametrize('kind', ['random', 'ties', 'masked', 'nan'])
+@pytest.mark.parametrize('kind', ['random', 'ties', 'masked', 'nan', 'empty'])
 @pytest.mark.parametrize('frames,states', [
     (1, 200), (2, 200), (70, 200), (33, 2039), (70, 31), (5, 512)])
 def test_logfreq_kernel_matches_plain(device, kind, frames, states):
@@ -211,6 +213,139 @@ def test_logfreq_kernel_keeps_the_first_of_sums_that_round_together(device):
     np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
 
 
+def _logfreq_initial(states):
+    return torch.log_softmax(torch.linspace(0., -5., states), -1)
+
+
+@pytest.mark.parametrize('kind', ['nan', 'empty'])
+def test_logfreq_kernel_takes_nan_and_empty_band_frames_at_full_width(
+    device, kind
+):
+    """861 frames of the harmonics axis: sixteen blocks, several chunks of
+    the backtrace"""
+    frequencies = _stft_axis()
+    observation = _logfreq_observation(kind, 861, 2039, 11)
+    initial = _logfreq_initial(2039)
+    plain = viterbi.decode_logfreq(observation, frequencies, initial)
+    kernel = viterbi.decode_logfreq(
+        observation.to(device), frequencies, initial.to(device))
+    torch.cuda.synchronize()
+    assert viterbi.logfreq_route(frequencies, device) == ('cluster', 16)
+    np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize('states,frames', [(200, 70), (2039, 40)])
+def test_logfreq_kernel_decodes_a_batch(device, states, frames):
+    frequencies = _stft_axis() if states == 2039 else \
+        np.linspace(50., 8000., states)
+    observation = torch.stack([
+        _logfreq_observation(kind, frames, states, 5)
+        for kind in ('random', 'nan', 'ties')])
+    initial = _logfreq_initial(states)
+    plain = viterbi.decode_logfreq(observation, frequencies, initial)
+    launches = viterbi.decode_logfreq.launches
+    kernel = viterbi.decode_logfreq(
+        observation.to(device), frequencies, initial.to(device))
+    torch.cuda.synchronize()
+    assert viterbi.decode_logfreq.launches == launches + 1
+    assert kernel.shape == (3, frames) and kernel.dtype == torch.int32
+    np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+    for sequence, path in zip(observation, kernel):
+        single = viterbi.decode_logfreq(
+            sequence.to(device), frequencies, initial.to(device))
+        np.testing.assert_array_equal(
+            single.cpu().numpy(), path.cpu().numpy())
+
+
+def test_logfreq_kernel_stores_two_byte_predecessors(device):
+    """The forward pass alone, then the backtrace alone over its scratch"""
+    frequencies = np.linspace(50., 8000., 200)
+    observation = _logfreq_observation('masked', 70, 200, 2).to(device)
+    initial = _logfreq_initial(200).to(device)
+    predecessors, path = viterbi._decode_logfreq_cuda(
+        observation, frequencies, initial, 3.5, phases=1)
+    torch.cuda.synchronize()
+    assert predecessors.dtype == torch.int16 == viterbi.logfreq_entry_dtype(
+        200)
+    assert predecessors.shape == (1, 70, 200)  # 200 is a multiple of 8
+    expected, final_alpha = viterbi.forward_plain(
+        observation, viterbi.logfreq_transition_dense(frequencies).to(device),
+        initial)
+    np.testing.assert_array_equal(
+        predecessors[0, 1:].cpu().numpy(), expected[1:].cpu().numpy())
+    assert int(path[0, -1]) == int(torch.argmax(final_alpha))
+    whole = viterbi.decode_logfreq(observation, frequencies, initial)
+    apart = viterbi._decode_logfreq_cuda(
+        observation, frequencies, initial, 3.5, phases=2,
+        scratch=(predecessors, path))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        apart.cpu().numpy(), whole.cpu().numpy())
+
+
+@pytest.mark.parametrize('states,blocks', [(200, 1), (200, 4), (2039, 16)])
+def test_logfreq_kernel_counts_cycles_on_request(device, states, blocks):
+    """The counting variant decodes the same path and fills its counts"""
+    frequencies = _stft_axis() if states == 2039 else \
+        np.linspace(50., 8000., states)
+    observation = _logfreq_observation('masked', 50, states, 6).to(device)
+    initial = _logfreq_initial(states).to(device)
+    plain = viterbi._decode_logfreq_cuda(
+        observation, frequencies, initial, 3.5, route=blocks)
+    cycles = torch.zeros(
+        (2, len(viterbi.LOGFREQ_SECTIONS)), dtype=torch.int64, device=device)
+    counted = viterbi._decode_logfreq_cuda(
+        observation, frequencies, initial, 3.5, route=blocks, cycles=cycles)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        counted.cpu().numpy(), plain.cpu().numpy())
+    assert (cycles[0] > 0).all()
+    with pytest.raises(ValueError, match='cycles'):
+        viterbi._decode_logfreq_cuda(
+            observation, frequencies, initial, 3.5, cycles=cycles.int())
+
+
+@pytest.mark.parametrize('kind', ['random', 'masked', 'nan'])
+@pytest.mark.parametrize('route', [1, 2, 4, 16, 'grid'])
+def test_logfreq_kernel_agrees_on_every_route(device, route, kind):
+    """Clusters of every size and the grid route on one axis"""
+    frequencies = np.linspace(50., 8000., 200)
+    observation = _logfreq_observation(kind, 70, 200, 8)
+    initial = _logfreq_initial(200)
+    plain = viterbi.decode_logfreq(observation, frequencies, initial)
+    routes = dict(viterbi.decode_logfreq.routes)
+    kernel = viterbi._decode_logfreq_cuda(
+        observation.to(device), frequencies, initial.to(device), 3.5,
+        route=route)
+    torch.cuda.synchronize()
+    taken = 'grid' if route == 'grid' else 'cluster'
+    assert viterbi.decode_logfreq.routes[taken] == routes[taken] + 1
+    np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+def test_logfreq_route_follows_the_size_of_the_axis(device):
+    """One block for 200 states, sixteen for the harmonics axis, the grid
+    route where no cluster holds the table"""
+    assert viterbi.logfreq_route(
+        np.linspace(50., 8000., 200), device) == ('cluster', 1)
+    assert viterbi.logfreq_route(_stft_axis(), device) == ('cluster', 16)
+    long_axis = np.linspace(50., 8000., 3000)
+    assert viterbi.logfreq_route(long_axis, device)[0] == 'grid'
+    observation = _logfreq_observation('masked', 30, 3000, 1)
+    initial = _logfreq_initial(3000)
+    routes = dict(viterbi.decode_logfreq.routes)
+    kernel = viterbi.decode_logfreq(
+        observation.to(device), long_axis, initial.to(device))
+    torch.cuda.synchronize()
+    assert viterbi.decode_logfreq.routes['grid'] == routes['grid'] + 1
+    plain = viterbi.backtrace_plain(*viterbi.forward_plain(
+        observation.to(device),
+        viterbi.logfreq_transition_dense(long_axis).to(device),
+        initial.to(device)))
+    np.testing.assert_array_equal(
+        kernel.cpu().numpy(), plain.cpu().numpy())
+
+
 def test_logfreq_kernel_rejects_what_it_does_not_take(device):
     frequencies = np.linspace(50., 8000., 200)
     observation = torch.zeros(4, 200, device=device)
@@ -221,7 +356,8 @@ def test_logfreq_kernel_rejects_what_it_does_not_take(device):
         viterbi.decode_logfreq(observation, frequencies[:100], initial)
     with pytest.raises(ValueError, match='initial'):
         viterbi.decode_logfreq(observation, frequencies, initial.cpu())
-    # A block's slice of the band table must fit in shared memory
+    # No cluster holds this table, and a block of the grid route must fit
+    # its slice of it in shared memory
     with pytest.raises(ValueError, match='too long'):
         viterbi.decode_logfreq(
             torch.zeros(2, 6000, device=device),

@@ -395,6 +395,63 @@ def test_harmonics_viterbi_matches_jax(given_pitch):
         np.testing.assert_array_equal(ours[0], frequencies[track])
 
 
+@pytest.mark.parametrize('kinds', [
+    ('random', 'nan'), ('ties', 'masked', 'random'), ('nan', 'nan')])
+def test_decode_logfreq_batch_matches_jax_dense(kinds):
+    """A (B, T, N) batch on the CPU is B single decodes"""
+    problems = [_problem(kind) for kind in kinds]
+    initial = problems[0][1]
+    batch = np.stack([observation for observation, _ in problems])
+    ours = _ours(batch, FREQUENCIES, initial)
+    assert ours.shape == (len(kinds), 70) and ours.dtype == np.int32
+    for path, observation in zip(ours, batch):
+        np.testing.assert_array_equal(
+            path, _jax_dense(observation, FREQUENCIES, initial))
+        np.testing.assert_array_equal(
+            path, _ours(observation, FREQUENCIES, initial))
+
+
+def test_decode_logfreq_batch_keeps_the_binade_case():
+    observation, initial = _problem('binade')
+    batch = np.stack([observation, observation[::-1].copy()])
+    ours = _ours(batch, FREQUENCIES, initial)
+    assert ours[0, 0] == 43
+    for path, sequence in zip(ours, batch):
+        np.testing.assert_array_equal(
+            path, _jax_dense(sequence, FREQUENCIES, initial))
+
+
+@pytest.mark.parametrize('given_pitch', [False, True])
+@pytest.mark.parametrize('max_harmonics', [1, 2, 3, 5])
+def test_harmonics_viterbi_batches_the_decodes_above_f0(
+    given_pitch, max_harmonics, monkeypatch
+):
+    """One decode for F0 unless it is given, one batch for all the rest,
+    and the same contours as the JAX package's loop"""
+    spectra, frequencies = _decode_problem()
+    pitch = frequencies[20] * np.ones((1, 40), np.float32) \
+        if given_pitch else None
+    shapes = []
+    decode_logfreq = viterbi.decode_logfreq
+
+    def counting(observation, *args, **kwargs):
+        shapes.append(tuple(observation.shape))
+        return decode_logfreq(observation, *args, **kwargs)
+
+    monkeypatch.setattr(viterbi, 'decode_logfreq', counting)
+    ours = harmonics.viterbi(
+        torch.from_numpy(spectra), frequencies,
+        None if pitch is None else torch.from_numpy(pitch),
+        max_harmonics=max_harmonics).numpy()
+    expected = ([] if given_pitch else [(40, 200)]) + (
+        [(max_harmonics - 1, 40, 200)] if max_harmonics > 1 else [])
+    assert shapes == expected
+    theirs = jax_harmonics.viterbi(
+        spectra, frequencies, pitch, max_harmonics=max_harmonics)
+    assert ours.shape == theirs.shape == (max_harmonics, 40)
+    np.testing.assert_array_equal(ours, theirs)
+
+
 def test_harmonics_viterbi_initial_is_within_float32_rounding():
     """torch and XLA round linspace and log differently: a few ulps"""
     ramp = torch.linspace(1., 0., 200)
