@@ -12,9 +12,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    `nvcc` each, in parallel.
 3. check: each kernel against its plain PyTorch version on the card.
    The residual block (K1) at every (C, k) of the main path, at the
-   main path's shapes (batch 1) and at ragged lengths (batch 4), bounded
-   per element by |kernel - plain| <= 2^-5 * (|plain| + 2 * rms(plain)),
-   and the bound must fail once a single bias is zeroed; the same at an
+   main path's shapes (batch 1), at ragged lengths (batch 4), at the
+   batched path's (batch 8 on the 896-frame bucket) and at the streaming
+   window's (batch 1, 64 frames), bounded per element by
+   |kernel - plain| <= 2^-5 * (|plain| + 2 * rms(plain)), and at every
+   batch above one the bound must fail once a single bias is zeroed; the
+   same at an
    odd width (C = 48, k = 7, batch 2), which the wrapper zero-pads, and
    at lengths shorter than one thread block of the fused pair, ending
    inside its recomputed halo, and shorter than the halo. The
@@ -52,7 +55,35 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    PITCH_ESTIMATOR='dsp' and stretch_unvoiced=False (12 residual-block
    calls and 1 Viterbi decode each, finite audio of
    round(frames * 1.4) * HOPSIZE samples). Second calls are timed.
-7. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
+7. batched path: eight utterances of one bucket (the 10 s audio extended
+   to its 896-frame bucket, at eight pitch shifts and speakers) through
+   synthesize.from_features_batched, one generator call with K1 at batch
+   8 (12 residual-block calls); each row within the bf16 bound of its own
+   single from_features call.
+8. stream path: synthesize.Streamer (16 | 32 | 16 frames) fed the main
+   path's 861 frames in 10-frame pieces, then flushed: 12 residual-block
+   calls per window, frames * HOPSIZE finite samples, interior
+   correlation with offline synthesis above 0.9.
+9. FARGAN path (configs/fargan.py, bf16, seeded): synthesize.from_features
+   offline, then synthesize.FARGANStreamer in 32-frame chunks; no kernel
+   launches; the chunked audio held to the offline audio by the bounds
+   FARGAN_FIRST_FRAMES_BOUND (first four frames), FARGAN_MAX_ABS_BOUND
+   and FARGAN_CORRELATION_BOUND.
+10. Vocos path (configs/baselines/vocos.py, bf16, seeded): finite audio
+   of frames * HOPSIZE samples, no kernel launches.
+11. file path: the 10 s audio as a wav file → preprocess.from_file_to_file
+   → harmonics.from_file_to_file (with the saved pitch) →
+   edit.from_file_to_file → synthesize.from_file_to_file, in a temporary
+   directory under build/: the cache's file names, an output of
+   round(frames * 1.4) * HOPSIZE samples, 12 residual-block calls, 1
+   Viterbi decode and 1 log-frequency launch; edit.from_file's features
+   must lie on the card and equal the files the chain wrote.
+   Paths 7 to 11 are each timed on their second call, with every launch
+   count set to 0 just before it and read just after; one call of the
+   batched path, one streaming window, one FARGAN chunk and one Vocos
+   call are then run under torch.profiler for their device events and
+   busy time.
+12. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
    launches per Block, the time at each number of row tiles per thread
    block, the plain chain's and cuDNN's times and the bound; K2 with the
    forward pass and the backtrace timed apart, microseconds per frame
@@ -73,6 +104,7 @@ runs in float32.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -88,7 +120,25 @@ PEAK_BYTES = 3.35e12
 
 DILATIONS = (1, 3, 5)
 KERNEL_SIZES = (3, 7, 11)
+
+# Frames the batched path's utterances are padded to (10 s of audio is
+# 861 frames) and frames of one window of synthesize.Streamer's default
+# 16 | 32 | 16
+BATCHED_BUCKET = 896
+STREAM_WINDOW = 64
 BF16_RTOL = 2. ** -5
+
+# Chunked FARGAN against one offline pass, in bf16: the conditioning
+# network's products run over other row counts, and a rounding that
+# differs is fed back through the recurrence. Bounds: the first four
+# frames within one bf16 step at the output's scale (2^-10 for samples in
+# [0.125, 0.25); the seeded output peaks near 0.18), the whole 10 s
+# within four, correlation as the JAX package's float32 contract. On an
+# H100 the first four frames were equal, the whole within one step and
+# the correlation 0.9999957.
+FARGAN_FIRST_FRAMES_BOUND = 2. ** -10
+FARGAN_MAX_ABS_BOUND = 2. ** -8
+FARGAN_CORRELATION_BOUND = 0.9999
 
 
 def within_bf16_bound(torch, kernel, plain):
@@ -213,6 +263,295 @@ def block_bound_ms(batch, frames, channels, kernel_size):
         'operations' if flops / PEAK_BF16 > moved / PEAK_BYTES else 'bytes'
 
 
+def launch_counts(resblock, viterbi):
+    return {'resblock': resblock.fused_block.launches,
+            'viterbi': viterbi.decode.launches,
+            'viterbi_logfreq': viterbi.decode_logfreq.launches}
+
+
+def reset_launch_counts(resblock, viterbi):
+    resblock.fused_block.launches = 0
+    viterbi.decode.launches = 0
+    viterbi.decode_logfreq.launches = 0
+
+
+def correlation(a, b):
+    return float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+
+
+def device_busy(torch, function):
+    """Kernels and device time of one function() call under torch.profiler
+
+    Returns {'wall_ms', 'kernels', 'device_busy_ms'}: the host time of the
+    profiled call (the profiler's own cost included), the count of device
+    events (kernels, copies, fills) and the sum of their durations; the
+    last two are None where the profiler recorded no device event.
+    """
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as profile:
+        start = time.perf_counter()
+        function()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    events = [event for event in profile.events()
+              if event.device_type == torch.autograd.DeviceType.CUDA]
+    return {
+        'wall_ms': wall * 1e3,
+        'kernels': len(events) if events else None,
+        'device_busy_ms': sum(
+            event.time_range.elapsed_us() for event in events) / 1e3
+        if events else None}
+
+
+def serving_paths(torch, port, config, device, audio, features, pitch_model,
+                  ppg_model, generator):
+    """Phases 7 to 11: batched, windowed and exact-state streaming
+    synthesis, the FARGAN and Vocos backbones, and the file-level entry
+    points, each at full width; returns each path's launch counts"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    hopsize, sample_rate = config.HOPSIZE, config.SAMPLE_RATE
+    frames = features[1].shape[-1]
+    host = [x.cpu().numpy() for x in features]
+    path_launches = {}
+
+    def timed(function, calls=2):
+        """The last of `calls` calls, each with the counts set to 0 just
+        before it: (result, host seconds, launch counts)"""
+        for _ in range(calls):
+            reset_launch_counts(resblock, viterbi)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = function()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            counts = launch_counts(resblock, viterbi)
+        return result, seconds, counts
+
+    def expect(path, counts, expected):
+        path_launches[path] = counts
+        if counts != expected:
+            raise AssertionError(f'{path} launches {counts}')
+
+    # 7. Eight utterances of one bucket in one generator call: the 10 s
+    # audio extended to the 896-frame bucket, at eight pitch shifts, so
+    # that no padding enters the comparison with single calls
+    bucket = port.data.bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS)
+    long_audio = harmonic_audio(
+        bucket * hopsize / sample_rate + 1., sample_rate)[:, :bucket * hopsize]
+    base = port.preprocess.from_audio(
+        long_audio, pitch_model, ppg_model, loudness_bands=None,
+        config=config, device=device)
+    shifts = (-300., -200., -100., 0., 100., 200., 300., 400.)
+    sets = [port.edit.from_features(
+        *base, pitch_shift_cents=cents, config=config) for cents in shifts]
+    speakers = list(range(len(sets)))
+    batched, batched_seconds, counts = timed(
+        lambda: port.synthesize.from_features_batched(
+            sets, generator, speakers=speakers, device=device))
+    expect('batched', counts, {'resblock': 12, 'viterbi': 0,
+                               'viterbi_logfreq': 0})
+    singles, singles_seconds, _ = timed(lambda: [
+        port.synthesize.from_features(
+            *values, generator=generator, speaker=speaker, device=device)
+        for values, speaker in zip(sets, speakers)])
+    rows_within = []
+    relative_rms = []
+    for row, single in zip(batched, singles):
+        single = torch.from_numpy(single).to(device)
+        rows_within.append(within_bf16_bound(torch, row, single))
+        relative_rms.append(float(
+            (row - single).pow(2).mean().sqrt() / single.pow(2).mean().sqrt()))
+    profiled = device_busy(
+        torch, lambda: port.synthesize.from_features_batched(
+            sets, generator, speakers=speakers, device=device))
+    record = dict(
+        phase='batched_path', utterances=len(sets), frames=bucket,
+        shape=list(batched.shape), ms_per_call=batched_seconds * 1e3,
+        ms_per_utterance=batched_seconds * 1e3 / len(sets),
+        single_calls_ms=singles_seconds * 1e3,
+        single_ms_per_utterance=singles_seconds * 1e3 / len(sets),
+        launches=counts, rows_within_bf16_bound=rows_within,
+        row_relative_rms_err=relative_rms, profiled_call=profiled,
+        finite=bool(torch.isfinite(batched).all()))
+    emit(**record)
+    if record['shape'] != [len(sets), 1, bucket * hopsize] or \
+            not record['finite'] or not all(rows_within):
+        raise AssertionError('batched synthesis is wrong')
+
+    # 8. Windowed streaming of the main path's features in 10-frame pieces
+    def stream(streamer, step):
+        pieces = [streamer.feed(*(x[:, start:start + step] for x in host))
+                  for start in range(0, frames, step)]
+        pieces.append(streamer.flush())
+        return np.concatenate(pieces, axis=-1)
+
+    streamer = port.synthesize.Streamer(generator, speaker=3, device=device)
+    if (bucket, streamer.window) != (BATCHED_BUCKET, STREAM_WINDOW):
+        raise AssertionError('K1 was checked at other shapes than these')
+    streamed, stream_seconds, counts = timed(lambda: stream(streamer, 10))
+    windows = -(-frames // streamer.chunk)
+    expect('stream', counts, {'resblock': 12 * windows, 'viterbi': 0,
+                              'viterbi_logfreq': 0})
+    # One window: a fresh stream fed exactly chunk + right frames
+    window = port.synthesize.Streamer(generator, speaker=3, device=device)
+    profiled = device_busy(torch, lambda: window.feed(*(
+        x[:, :window.chunk + window.right] for x in host)))
+    offline = port.synthesize.from_features(
+        *features, generator=generator, speaker=3, device=device)
+    interior = slice(4096, frames * hopsize - 4096)
+    record = dict(
+        phase='stream_path', frames=frames, windows=windows,
+        window_frames=streamer.window, ms=stream_seconds * 1e3,
+        ms_per_window=stream_seconds * 1e3 / windows,
+        realtime_factor=frames * hopsize / sample_rate / stream_seconds,
+        latency_seconds=streamer.latency_seconds, launches=counts,
+        profiled_window=profiled, samples=streamed.shape[-1],
+        interior_correlation=correlation(
+            streamed[0, interior], offline[0, interior]),
+        finite=bool(np.isfinite(streamed).all()))
+    emit(**record)
+    if streamed.shape != (1, frames * hopsize) or not record['finite'] or \
+            record['interior_correlation'] <= 0.9:
+        raise AssertionError('streaming synthesis is wrong')
+
+    # 9. FARGAN (configs/fargan.py, bf16): offline, then exact-state
+    # streaming in 32-frame chunks
+    fargan_config = port.config.load(ROOT / 'configs' / 'fargan.py')
+    fargan = port.models.init.seeded(
+        port.models.Generator(fargan_config), 4).to(device).eval()
+    offline, offline_seconds, counts = timed(
+        lambda: port.synthesize.from_features(
+            *features, generator=fargan, speaker=3, device=device))
+    expect('fargan', counts, {'resblock': 0, 'viterbi': 0,
+                              'viterbi_logfreq': 0})
+    chunk = 32
+    chunked, chunked_seconds, counts = timed(lambda: stream(
+        port.synthesize.FARGANStreamer(
+            fargan, speaker=3, chunk_frames=chunk, device=device), chunk))
+    first_chunk = port.synthesize.FARGANStreamer(
+        fargan, speaker=3, chunk_frames=chunk, device=device)
+    profiled = device_busy(torch, lambda: first_chunk.feed(*(
+        x[:, :chunk] for x in host)))
+    if profiled['kernels'] is not None:
+        profiled['kernels_per_subframe'] = profiled['kernels'] / (
+            chunk * fargan.backbone.subframes)
+    difference = np.abs(chunked - offline)
+    record = dict(
+        phase='fargan_path', frames=frames, dtype=fargan_config.PRECISION,
+        offline_ms=offline_seconds * 1e3,
+        offline_realtime_factor=(
+            frames * hopsize / sample_rate / offline_seconds),
+        chunk_frames=chunk, chunked_ms=chunked_seconds * 1e3,
+        ms_per_chunk=chunked_seconds * 1e3 / -(-frames // chunk),
+        chunked_launches=counts, profiled_chunk=profiled,
+        first_4_frames_max_abs_err=float(difference[..., :4 * hopsize].max()),
+        max_abs_err=float(difference.max()),
+        correlation=correlation(chunked, offline),
+        peak=float(np.abs(offline).max()),
+        finite=bool(np.isfinite(offline).all() and np.isfinite(chunked).all()))
+    record['within_stated_bound'] = (
+        record['first_4_frames_max_abs_err'] <= FARGAN_FIRST_FRAMES_BOUND and
+        record['max_abs_err'] <= FARGAN_MAX_ABS_BOUND and
+        record['correlation'] >= FARGAN_CORRELATION_BOUND)
+    emit(**record)
+    if offline.shape != chunked.shape or offline.shape != (
+            1, frames * hopsize) or not record['finite'] or \
+            not record['within_stated_bound']:
+        raise AssertionError('FARGAN synthesis is wrong')
+
+    # 10. Vocos (configs/baselines/vocos.py, bf16)
+    vocos_config = port.config.load(
+        ROOT / 'configs' / 'baselines' / 'vocos.py')
+    vocos = port.models.init.seeded(
+        port.models.Generator(vocos_config), 5).to(device).eval()
+    output, vocos_seconds, counts = timed(
+        lambda: port.synthesize.from_features(
+            *features, generator=vocos, speaker=3, device=device))
+    expect('vocos', counts, {'resblock': 0, 'viterbi': 0,
+                             'viterbi_logfreq': 0})
+    profiled = device_busy(torch, lambda: port.synthesize.from_features(
+        *features, generator=vocos, speaker=3, device=device))
+    record = dict(
+        phase='vocos_path', frames=frames, ms=vocos_seconds * 1e3,
+        profiled_call=profiled,
+        realtime_factor=frames * hopsize / sample_rate / vocos_seconds,
+        samples=output.shape[-1], finite=bool(np.isfinite(output).all()))
+    emit(**record)
+    if output.shape != (1, frames * hopsize) or not record['finite']:
+        raise AssertionError('Vocos synthesis is wrong')
+
+    # 11. Files: wav → features → edited features → wav, and the harmonic
+    # contours from the wav and the saved pitch
+    (ROOT / 'build').mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as directory:
+        directory = Path(directory)
+        wav = directory / 'speech.wav'
+        port.utils.audio.save(wav, audio, sample_rate)
+        infix = '-viterbi' if config.VITERBI_DECODE_PITCH else ''
+
+        def inputs(prefix):
+            return [directory / f'{prefix}{name}.npy' for name in (
+                '-loudness', f'{infix}-pitch', f'{infix}-periodicity', '-ppg')]
+
+        def files():
+            stage_ms = {}
+            start = time.perf_counter()
+            for stage, function in (
+                ('preprocess', lambda: port.preprocess.from_file_to_file(
+                    wav, pitch_model, ppg_model, config=config,
+                    device=device)),
+                ('harmonics', lambda: port.preprocess.harmonics.
+                    from_file_to_file(
+                        wav, directory / 'speech-harmonics.npy',
+                        pitch_file=inputs('speech')[1], config=config,
+                        device=device)),
+                ('edit', lambda: port.edit.from_file_to_file(
+                    *inputs('speech'), directory / 'edited', config=config,
+                    device=device, **EDIT)),
+                ('synthesize', lambda: port.synthesize.from_file_to_file(
+                    *inputs('edited'), directory / 'edited.wav', generator,
+                    speaker=3, device=device))):
+                function()
+                torch.cuda.synchronize()
+                stage_ms[stage] = (time.perf_counter() - start) * 1e3
+                start = time.perf_counter()
+            return stage_ms
+
+        stage_ms, file_seconds, counts = timed(files)
+        expect('file', counts, {'resblock': 12, 'viterbi': 1,
+                                'viterbi_logfreq': 1})
+        names = sorted(path.name for path in directory.iterdir())
+        expected = sorted(
+            [path.name for path in inputs('speech') + inputs('edited')] +
+            ['speech.wav', 'speech-harmonics.npy', 'edited.wav'])
+        edited_audio, rate = port.utils.audio.load(directory / 'edited.wav')
+        harmonics = port.load.array(directory / 'speech-harmonics.npy')
+        out_frames = round(frames * 1.4)
+        # The edit stage computes on the card, and what it wrote is that
+        edited = port.edit.from_file(
+            *inputs('speech'), config=config, device=device, **EDIT)
+        edited_on = sorted({value.device.type for value in edited})
+        edited_as_written = all(
+            np.array_equal(value.cpu().numpy(), port.load.array(file))
+            for value, file in zip(edited, inputs('edited')))
+        record = dict(
+            phase='file_path', ms=file_seconds * 1e3, stage_ms=stage_ms,
+            files=names, names_as_expected=names == expected,
+            samples=edited_audio.shape[-1], sample_rate=rate,
+            harmonics_shape=list(harmonics.shape), launches=counts,
+            edited_on=edited_on, edited_as_written=edited_as_written)
+        emit(**record)
+        if edited_on != ['cuda'] or not edited_as_written:
+            raise AssertionError('the file edit did not run on the card')
+        if names != expected or rate != sample_rate or \
+                edited_audio.shape != (1, out_frames * hopsize) or \
+                harmonics.shape != (config.MAX_HARMONICS, frames):
+            raise AssertionError('file-level entry points are wrong')
+    return path_launches
+
+
 def main():
     try:
         import torch
@@ -263,18 +602,29 @@ def main():
     bucket_out = port.data.bucket_frames(
         round(int(10 * config.SAMPLE_RATE) // config.HOPSIZE * 1.4),
         config.INFERENCE_FRAME_BUCKETS)
-    shapes = []  # (frames, channels) of each stage at the synthesis bucket
-    channels, frames = config.HIFIGAN_UPSAMPLE_INITIAL_SIZE, bucket_out
-    for rate in config.HIFIGAN_UPSAMPLE_RATES:
-        channels, frames = channels // 2, frames * rate
-        shapes.append((frames, channels))
+    def stage_shapes(frames):
+        """(samples, channels) of each upsampling stage's Blocks"""
+        shapes, channels = [], config.HIFIGAN_UPSAMPLE_INITIAL_SIZE
+        for rate in config.HIFIGAN_UPSAMPLE_RATES:
+            channels, frames = channels // 2, frames * rate
+            shapes.append((frames, channels))
+        return shapes
+
+    shapes = stage_shapes(bucket_out)  # at the main path's synthesis bucket
     k1_error = 0.
     # (frames, channels, kernel sizes, (batch, length) pairs): the main
-    # path's shapes with ragged batches, then an odd width
+    # path's shapes with ragged batches, the batched path's at batch 8,
+    # one streaming window's, then an odd width
     k1_checks = [
         (frames, channels, KERNEL_SIZES,
          ((1, frames), (4, frames // 16 + 37)))
         for frames, channels in shapes]
+    k1_checks += [
+        (frames, channels, KERNEL_SIZES, ((8, frames),))
+        for frames, channels in stage_shapes(BATCHED_BUCKET)]
+    k1_checks += [
+        (frames, channels, KERNEL_SIZES, ((1, frames),))
+        for frames, channels in stage_shapes(STREAM_WINDOW)]
     k1_checks.append((1000, 48, (7,), ((2, 1000),)))
     # The fused pair keeps 128 - (k - 1) rows per thread block at 128
     # channels: a length below one block, one that ends three rows into
@@ -674,6 +1024,12 @@ def main():
     generator.config = config
     emit(phase='second_path_stages', harmonics_ms=harmonics_ms,
          from_edited_audio_ms=edited_ms)
+
+    # 7 to 11. The rest of the serving surface
+    path_launches = serving_paths(
+        torch, port, config, device, audio, features, pitch_model, ppg_model,
+        generator)
+    emit(phase='serving_paths', launches=path_launches)
 
     # 7. Kernel times at the main path's shapes
     k1 = dict(ms=0., plain_ms=0., library_ms=0., bound_ms=0.)

@@ -5,8 +5,11 @@ editing chain: `preprocess.from_audio` (loudness, pitch from the CNN or
 the NCC front end with Viterbi or argmax decoding, periodicity, PPG,
 harmonic contours) → `edit.from_features` (pitch shift, constant-ratio or
 PPG-aware time stretch, loudness scale) → `synthesize.from_features`
-(HiFi-GAN), and `synthesize.from_edited_audio` for the whole chain in one
-call. Each Pallas kernel of the JAX package is a hand-written CUDA kernel
+(HiFi-GAN, FARGAN or Vocos), and `synthesize.from_edited_audio` for the
+whole chain in one call; batched synthesis
+(`synthesize.from_features_batched`), streaming (`synthesize.Streamer`,
+`synthesize.FARGANStreamer`) and the `from_file*` entry points that read
+and write the JAX package's files. Each Pallas kernel of the JAX package is a hand-written CUDA kernel
 here (`csrc/`), beside a plain PyTorch version that serves CPU tensors.
 Entry points run on the GPU unless called with device='cpu'.
 

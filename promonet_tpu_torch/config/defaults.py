@@ -4,9 +4,9 @@ A copy of the constants that the editing chain reads from the JAX
 package's defaults (`promonet_tpu/config/defaults.py`). Names and values
 are identical, so the same override files (`configs/*.py`,
 `runs/<run>/<config>.py`) configure both packages. Constants of parts
-that are not ported yet (training, discriminators, evaluation, other
-vocoders) are left out; an override file may still set them, and they
-are carried on the `Config` object unread.
+that are not ported yet (training, discriminators, evaluation) are left
+out; an override file may still set them, and they are carried on the
+`Config` object unread.
 """
 from pathlib import Path
 
@@ -122,8 +122,19 @@ INPUT_FEATURES = ['loudness', 'pitch', 'periodicity', 'ppg']
 # Negative-side slope of every leaky ReLU
 LRELU_SLOPE = .1
 
-# Vocoder backbone; only 'hifigan' is ported
+# Vocoder backbone: 'hifigan', 'fargan' or 'vocos' ('cargan' is not
+# ported)
 MODEL = 'hifigan'
+
+# CARGAN: waveform lookback window feeding the autoregressive encoder
+# (NUM_PREVIOUS_SAMPLES when MODEL is 'cargan')
+CARGAN_INPUT_SIZE = 2 * HOPSIZE
+
+# FARGAN: frames of history available to the pitch-period lookback
+# (NUM_PREVIOUS_SAMPLES when MODEL is 'fargan'). The JAX package's other
+# FARGAN_* settings are left out: its generator builds FARGAN with the
+# class defaults and reads none of them.
+FARGAN_PREVIOUS_FRAMES = 2  # frames
 
 # HiFi-GAN: parallel residual-branch kernel widths
 HIFIGAN_RESBLOCK_KERNEL_SIZES = [3, 7, 11]
@@ -142,6 +153,15 @@ HIFIGAN_UPSAMPLE_RATES = [8, 8, 2, 2]
 
 # Width of the speaker identity vector
 SPEAKER_CHANNELS = 256
+
+# Vocos: ConvNeXt trunk width
+VOCOS_CHANNELS = 512
+
+# Vocos: ConvNeXt inverted-bottleneck width
+VOCOS_POINTWISE_CHANNELS = 1536
+
+# Vocos: ConvNeXt depth
+VOCOS_LAYERS = 6
 
 # Condition on WavLM x-vectors instead of a learned speaker table
 # (not ported)

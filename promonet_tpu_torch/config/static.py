@@ -11,7 +11,8 @@ DERIVED = (
     'LOG_FMIN',
     'LOG_FMAX',
     'GLOBAL_CHANNELS',
-    'NUM_FEATURES')
+    'NUM_FEATURES',
+    'NUM_PREVIOUS_SAMPLES')
 
 _NUM_SPEAKERS_BY_DATASET = {
     'daps': 20,
@@ -39,7 +40,12 @@ def derive(values):
                 ('periodicity' in features) +
                 ('pitch' in features) * (
                     values['PITCH_EMBEDDING_SIZE']
-                    if values['PITCH_EMBEDDING'] else 1)))}
+                    if values['PITCH_EMBEDDING'] else 1))),
+        # Samples of history an autoregressive backbone takes
+        'NUM_PREVIOUS_SAMPLES': {
+            'cargan': values['CARGAN_INPUT_SIZE'],
+            'fargan': values['HOPSIZE'] * values['FARGAN_PREVIOUS_FRAMES']
+        }.get(values['MODEL'], 1)}
 
     # A config file may pin the speaker count; else it follows the dataset
     if 'NUM_SPEAKERS' not in values:

@@ -4,7 +4,8 @@ Pitch shift, time stretch and loudness scale, on exact-length features.
 The stretch is constant-ratio, or PPG-aware: `stretch_unvoiced=False` or
 `stretch_silence=False` exempt those frames, and the variable-rate grid
 is then built on the host from the PPG (`_selective_grid`), because it
-decides the output length.
+decides the output length. The `from_file*` functions read and write the
+feature files of `preprocess.save`, and edit on `device`.
 """
 import math
 from typing import Optional
@@ -14,6 +15,8 @@ import torch
 
 from .. import config as config_module
 from .. import convert
+from .. import device as device_module
+from .. import load
 from ..preprocess.ppg import (
     PHONEME_TO_INDEX_MAPPING, PHONEMES, SILENCE, VOICED)
 from . import grid as grid_module
@@ -88,6 +91,111 @@ def from_features(
     if return_grid:
         return loudness, pitch, periodicity, ppg, grid
     return loudness, pitch, periodicity, ppg
+
+
+def from_file(
+    loudness_file,
+    pitch_file,
+    periodicity_file,
+    ppg_file,
+    pitch_shift_cents=None,
+    time_stretch_ratio=None,
+    loudness_scale_db=None,
+    stretch_unvoiced=True,
+    stretch_silence=True,
+    return_grid=False,
+    config=None,
+    device='cuda'
+):
+    """Edit features on disk; see `from_features`
+
+    The arrays are moved to `device` ('cuda' raises on a host without a
+    card) and edited there. The PPG is resampled to the pitch's frame
+    count (`load.ppg`).
+    """
+    config = config_module.default() if config is None else config
+    device = device_module.resolve(device)
+    loudness, pitch, periodicity = (
+        torch.as_tensor(load.array(file), dtype=torch.float32, device=device)
+        for file in (loudness_file, pitch_file, periodicity_file))
+    return from_features(
+        loudness,
+        pitch,
+        periodicity,
+        load.ppg(ppg_file, pitch.shape[-1], config, device),
+        pitch_shift_cents,
+        time_stretch_ratio,
+        loudness_scale_db,
+        stretch_unvoiced,
+        stretch_silence,
+        return_grid,
+        config)
+
+
+def from_file_to_file(
+    loudness_file,
+    pitch_file,
+    periodicity_file,
+    ppg_file,
+    output_prefix,
+    pitch_shift_cents=None,
+    time_stretch_ratio=None,
+    loudness_scale_db=None,
+    stretch_unvoiced=True,
+    stretch_silence=True,
+    save_grid=False,
+    config=None,
+    device='cuda'
+):
+    """Edit features on disk and save them under `output_prefix`
+
+    Names are those of `preprocess.save`; with save_grid the time-stretch
+    grid goes to `{output_prefix}-grid.npy`.
+    """
+    config = config_module.default() if config is None else config
+    results = from_file(
+        loudness_file, pitch_file, periodicity_file, ppg_file,
+        pitch_shift_cents, time_stretch_ratio, loudness_scale_db,
+        stretch_unvoiced, stretch_silence, save_grid, config, device)
+    viterbi = '-viterbi' if config.VITERBI_DECODE_PITCH else ''
+    load.save_array(f'{output_prefix}-loudness.npy', results[0])
+    load.save_array(f'{output_prefix}{viterbi}-pitch.npy', results[1])
+    load.save_array(f'{output_prefix}{viterbi}-periodicity.npy', results[2])
+    load.save_array(f'{output_prefix}-ppg.npy', results[3])
+    if save_grid:
+        load.save_array(f'{output_prefix}-grid.npy', results[4])
+
+
+def from_files_to_files(
+    loudness_files,
+    pitch_files,
+    periodicity_files,
+    ppg_files,
+    output_prefixes,
+    pitch_shift_cents=None,
+    time_stretch_ratio=None,
+    loudness_scale_db=None,
+    stretch_unvoiced=True,
+    stretch_silence=True,
+    save_grid=False,
+    config=None,
+    device='cuda'
+):
+    """Edit several sets of features on disk, in turn"""
+    for files in zip(
+        loudness_files, pitch_files, periodicity_files, ppg_files,
+        output_prefixes
+    ):
+        from_file_to_file(
+            *files,
+            pitch_shift_cents=pitch_shift_cents,
+            time_stretch_ratio=time_stretch_ratio,
+            loudness_scale_db=loudness_scale_db,
+            stretch_unvoiced=stretch_unvoiced,
+            stretch_silence=stretch_silence,
+            save_grid=save_grid,
+            config=config,
+            device=device)
 
 
 def _selective_grid(ppg, ratio, stretch_unvoiced, stretch_silence):

@@ -1,9 +1,9 @@
-"""Generator: feature preparation + speaker conditioning + HiFi-GAN
+"""Generator: feature preparation + speaker conditioning + backbone
 
-Counterpart of `promonet_tpu/models/generator.py`, for the HiFi-GAN
-backbone with a learned speaker table (not zero-shot). Public layouts
-are the JAX package's: features (B, C, T) in, audio (B, 1, T * HOPSIZE)
-out.
+Counterpart of `promonet_tpu/models/generator.py`, with the backbones its
+`BaseGenerator.setup` dispatches on `MODEL` ('hifigan', 'fargan',
+'vocos') and a learned speaker table. Public layouts are the JAX
+package's: features (B, C, T) in, audio (B, 1, T * HOPSIZE) out.
 """
 import numpy as np
 import torch
@@ -12,7 +12,9 @@ from torch import nn
 from .. import config as config_module
 from .. import load
 from ..ops import sparse
+from .fargan import FARGAN
 from .hifigan import HiFiGAN
+from .vocos import Vocos
 
 
 def _band_average(loudness, bands):
@@ -35,11 +37,12 @@ class Generator(nn.Module):
     def __init__(self, config=None):
         super().__init__()
         config = config_module.default() if config is None else config
-        if config.MODEL != 'hifigan' or config.ZERO_SHOT \
-                or config.SPECTROGRAM_ONLY:
+        if config.ZERO_SHOT or config.SPECTROGRAM_ONLY \
+                or config.MODEL == 'cargan':
             raise NotImplementedError(
-                'The port has the HiFi-GAN generator with a speaker table '
-                'only')
+                'Zero-shot speakers (ZERO_SHOT), the spectrogram-only '
+                "generator (SPECTROGRAM_ONLY) and MODEL='cargan' are not "
+                'ported')
         self.config = config
         self.dtype = (
             torch.bfloat16 if config.PRECISION == 'bfloat16'
@@ -48,16 +51,36 @@ class Generator(nn.Module):
             # A plain attribute, not a buffer: `.to(dtype)` must not round it
             self.pitch_distribution = torch.from_numpy(
                 np.asarray(load.pitch_distribution(config), np.float32))
-        self.backbone = HiFiGAN(
-            config.NUM_FEATURES,
-            config.GLOBAL_CHANNELS,
-            initial_size=config.HIFIGAN_UPSAMPLE_INITIAL_SIZE,
-            upsample_kernel_sizes=tuple(config.HIFIGAN_UPSAMPLE_KERNEL_SIZES),
-            upsample_rates=tuple(config.HIFIGAN_UPSAMPLE_RATES),
-            resblock_kernel_sizes=tuple(config.HIFIGAN_RESBLOCK_KERNEL_SIZES),
-            resblock_dilation_sizes=tuple(
-                tuple(d) for d in config.HIFIGAN_RESBLOCK_DILATION_SIZES),
-            lrelu_slope=config.LRELU_SLOPE)
+        features = config.NUM_FEATURES
+        if config.MODEL == 'hifigan':
+            self.backbone = HiFiGAN(
+                features,
+                config.GLOBAL_CHANNELS,
+                initial_size=config.HIFIGAN_UPSAMPLE_INITIAL_SIZE,
+                upsample_kernel_sizes=tuple(
+                    config.HIFIGAN_UPSAMPLE_KERNEL_SIZES),
+                upsample_rates=tuple(config.HIFIGAN_UPSAMPLE_RATES),
+                resblock_kernel_sizes=tuple(
+                    config.HIFIGAN_RESBLOCK_KERNEL_SIZES),
+                resblock_dilation_sizes=tuple(
+                    tuple(d) for d in config.HIFIGAN_RESBLOCK_DILATION_SIZES),
+                lrelu_slope=config.LRELU_SLOPE)
+        elif config.MODEL == 'vocos':
+            self.backbone = Vocos(
+                features,
+                config.GLOBAL_CHANNELS,
+                channels=config.VOCOS_CHANNELS,
+                pointwise_channels=config.VOCOS_POINTWISE_CHANNELS,
+                num_layers=config.VOCOS_LAYERS,
+                n_fft=config.NUM_FFT,
+                hop_length=config.HOPSIZE)
+        elif config.MODEL == 'fargan':
+            # One more input channel: the pitch period
+            self.backbone = FARGAN(
+                features + 1, config.GLOBAL_CHANNELS,
+                num_previous=config.NUM_PREVIOUS_SAMPLES)
+        else:
+            raise ValueError(f'Generator model {config.MODEL} is not defined')
         self.speaker_embedding = nn.Embedding(
             config.NUM_SPEAKERS, config.SPEAKER_CHANNELS)
         if 'pitch' in config.INPUT_FEATURES and config.PITCH_EMBEDDING:
@@ -72,7 +95,9 @@ class Generator(nn.Module):
         ppg,
         speakers,
         spectral_balance_ratios,
-        loudness_ratios
+        loudness_ratios,
+        initial_states=None,
+        return_states=False
     ):
         """
         Arguments
@@ -83,13 +108,24 @@ class Generator(nn.Module):
             speakers: (B,) int speaker ids
             spectral_balance_ratios: (B,)
             loudness_ratios: (B,)
+            initial_states / return_states: FARGAN's carry, for streaming
+                that continues where the last call stopped
+                (`models.fargan.FARGAN.forward`); other backbones ignore
+                them
 
         Returns
-            audio: (B, 1, T * HOPSIZE), float32
+            audio: (B, 1, T * HOPSIZE), float32 [, FARGAN's final carry]
         """
         features = self.prepare_features(loudness, pitch, periodicity, ppg)
         global_features = self.prepare_global_features(
             speakers, spectral_balance_ratios, loudness_ratios)
+        if self.config.MODEL == 'fargan':
+            out = self.backbone(
+                features, global_features, self.dtype,
+                initial_states=initial_states, return_states=return_states)
+            if return_states:
+                return out[0].transpose(1, 2), out[1]
+            return out.transpose(1, 2)
         audio = self.backbone(features, global_features, self.dtype)
         return audio.transpose(1, 2)
 
@@ -138,5 +174,11 @@ class Generator(nn.Module):
 
         if 'periodicity' in config.INPUT_FEATURES:
             columns.append(periodicity[..., None])
+
+        # The pitch period in samples, for FARGAN's lookback
+        if config.MODEL == 'fargan':
+            columns.append((
+                config.SAMPLE_RATE /
+                torch.clamp(pitch, config.FMIN, config.FMAX))[..., None])
 
         return torch.cat([c.to(self.dtype) for c in columns], dim=-1)

@@ -22,21 +22,22 @@ class Conv1d(nn.Module):
     """1-D convolution over (B, T, C)
 
     `padding` is an int (both sides) or a (left, right) pair. Weight is
-    (out, in, k), PyTorch's layout.
+    (out, in // groups, k), PyTorch's layout.
     """
 
     def __init__(
         self, in_channels, out_channels, kernel_size, stride=1, padding=0,
-        bias=True
+        bias=True, groups=1
     ):
         super().__init__()
         self.stride = stride
+        self.groups = groups
         self.padding = (
             (padding, padding) if isinstance(padding, int) else
             tuple(padding))
-        self.fan_in = in_channels * kernel_size
+        self.fan_in = in_channels // groups * kernel_size
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kernel_size))
+            torch.empty(out_channels, in_channels // groups, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
     def forward(self, x, dtype=torch.float32):
@@ -44,7 +45,8 @@ class Conv1d(nn.Module):
         if any(self.padding):
             x = F.pad(x, self.padding)
         y = F.conv1d(
-            x, self.weight.to(dtype), stride=self.stride).transpose(1, 2)
+            x, self.weight.to(dtype), stride=self.stride,
+            groups=self.groups).transpose(1, 2)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
@@ -73,6 +75,51 @@ class ConvTranspose1d(nn.Module):
             x.transpose(1, 2).to(dtype), self.weight.to(dtype),
             stride=self.stride, padding=self.padding).transpose(1, 2)
         return y + self.bias.to(dtype)
+
+
+class Dense(nn.Module):
+    """Dense layer over (..., in) with weight (out, in), PyTorch's layout
+
+    Also the counterpart of the JAX package's weight-normed `WNDense`:
+    the bridge materialises the norm into the weight.
+
+    Computes in `dtype` with float32 accumulation, rounds, then adds the
+    bias in `dtype`, as Flax's `nn.Dense(dtype=...)` does. The weight's
+    cast to `dtype` is kept between calls while the weight is unchanged
+    and needs no gradient: the FARGAN recurrence calls each layer four
+    times per frame.
+    """
+
+    def __init__(self, in_features, out_features, bias=False):
+        super().__init__()
+        self.fan_in = in_features
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self._casts = {}
+
+    def forward(self, x, dtype=torch.float32):
+        y = F.linear(x.to(dtype), cast(self, 'weight', dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(dtype)
+        return y
+
+
+def cast(module, name, dtype):
+    """Parameter or buffer `name` of `module` in `dtype`, cast once and kept
+
+    The casts live in `module._casts`. One is made anew when the
+    parameter was written to or moved; a parameter that needs a gradient
+    is cast on every call.
+    """
+    parameter = getattr(module, name)
+    if parameter.dtype == dtype:
+        return parameter
+    if parameter.requires_grad and torch.is_grad_enabled():
+        return parameter.to(dtype)
+    key = (dtype, parameter.device, parameter.data_ptr(), parameter._version)
+    if module._casts.get(name, (None,))[0] != key:
+        module._casts[name] = (key, parameter.detach().to(dtype))
+    return module._casts[name][1]
 
 
 def same_padding(length, kernel_size, stride):

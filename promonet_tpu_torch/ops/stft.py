@@ -1,4 +1,6 @@
-"""Short-time Fourier analysis (counterpart of `promonet_tpu/ops/stft.py`)"""
+"""Short-time Fourier analysis and synthesis (counterpart of
+`promonet_tpu/ops/stft.py`)
+"""
 import math
 
 import torch
@@ -44,3 +46,40 @@ def stft(
         else:
             spec = torch.abs(spec)
     return spec.transpose(-1, -2)
+
+
+def overlap_add(frames, hop_length):
+    """Overlap-add frames (..., frame_length, n_frames) → (..., T)
+
+    T = (n_frames - 1) * hop_length + frame_length.
+    """
+    *leading, frame_length, num_frames = frames.shape
+    length = (num_frames - 1) * hop_length + frame_length
+    audio = F.fold(
+        frames.reshape(-1, frame_length, num_frames),
+        output_size=(1, length), kernel_size=(1, frame_length),
+        stride=(1, hop_length))
+    return audio.reshape(*leading, length)
+
+
+def istft(spec, n_fft, hop_length, window):
+    """Inverse STFT normalised by the squared-window envelope
+
+    irfft of each frame, window, overlap-add, trim (n_fft - hop) // 2
+    samples on both sides and divide by the overlap-added squared window,
+    as the JAX package's Vocos head does.
+
+    Arguments
+        spec: complex STFT (..., n_freq, n_frames)
+        window: (n_fft,) float32 synthesis window
+
+    Returns
+        audio (..., n_frames * hop_length)
+    """
+    num_frames = spec.shape[-1]
+    pad = (n_fft - hop_length) // 2
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * window
+    audio = overlap_add(frames.transpose(-1, -2), hop_length)
+    envelope = overlap_add(
+        (window * window)[:, None].expand(n_fft, num_frames), hop_length)
+    return audio[..., pad:-pad] / envelope[pad:-pad]

@@ -5,13 +5,17 @@ bucketed frame count, every feature is computed on the padded audio, and
 the results are trimmed to the true frame count, as the JAX package's
 fused extractor does. The padding changes the features of the last
 frames, so the bucket ladder is part of the result. Harmonics are
-computed on the unpadded audio.
+computed on the unpadded audio. The `from_file*` functions read wav files
+and save features under the JAX package's cache names (`save`).
 """
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from .. import config as config_module
 from .. import device as device_module
+from .. import load
 from ..data import bucket_frames
 from ..utils import audio as audio_module
 from . import harmonics as harmonics_module
@@ -84,6 +88,91 @@ def from_audio(
             _to_numpy(audio), max_harmonics=max_harmonics, config=config,
             device=device)
     return tuple(out[name] for name in FEATURES if name in features)
+
+
+def from_file(
+    file,
+    pitch_model,
+    ppg_model,
+    features=PADDED,
+    loudness_bands='default',
+    config=None,
+    device='cuda'
+):
+    """Preprocess a wav file; see `from_audio`"""
+    config = config_module.default() if config is None else config
+    return from_audio(
+        load.audio(file, config), pitch_model, ppg_model, features=features,
+        loudness_bands=loudness_bands, config=config, device=device)
+
+
+def from_file_to_file(
+    file,
+    pitch_model,
+    ppg_model,
+    output_prefix=None,
+    features=PADDED,
+    loudness_bands='default',
+    config=None,
+    device='cuda'
+):
+    """Preprocess a wav file and save the features (see `save`)
+
+    output_prefix None is the file's path without its suffix.
+    """
+    config = config_module.default() if config is None else config
+    if output_prefix is None:
+        output_prefix = Path(file).with_suffix('')
+    values = from_file(
+        file, pitch_model, ppg_model, features, loudness_bands, config,
+        device)
+    save(output_prefix, dict(zip(_ordered(features), values)), config)
+
+
+def from_files_to_files(
+    files,
+    pitch_model,
+    ppg_model,
+    output_prefixes=None,
+    features=PADDED,
+    loudness_bands='default',
+    config=None,
+    device='cuda'
+):
+    """Preprocess several wav files and save their features, in turn"""
+    if output_prefixes is None:
+        output_prefixes = [Path(file).with_suffix('') for file in files]
+    for file, output_prefix in zip(files, output_prefixes):
+        from_file_to_file(
+            file, pitch_model, ppg_model, output_prefix, features,
+            loudness_bands, config, device)
+
+
+def save(output_prefix, feature_values, config=None):
+    """Save named features under the JAX package's cache names
+
+    `{prefix}-{name}.npy`, with `-viterbi` before `-pitch` and
+    `-periodicity` when config.VITERBI_DECODE_PITCH is set; text goes to
+    `{prefix}.txt`.
+    """
+    config = config_module.default() if config is None else config
+    viterbi = '-viterbi' if config.VITERBI_DECODE_PITCH else ''
+    for name, value in feature_values.items():
+        if name == 'text':
+            with open(f'{output_prefix}.txt', 'w', encoding='utf-8') as file:
+                file.write(value)
+        elif name in ('pitch', 'periodicity'):
+            load.save_array(f'{output_prefix}{viterbi}-{name}.npy', value)
+        else:
+            load.save_array(f'{output_prefix}-{name}.npy', value)
+
+
+def _ordered(features):
+    """Feature names in the order `from_audio` returns them"""
+    order = [
+        'loudness', 'pitch', 'periodicity', 'spectrogram', 'ppg', 'text',
+        'harmonics', 'speaker']
+    return [name for name in order if name in features]
 
 
 def pad(audio, samples, device):

@@ -14,6 +14,7 @@ import torch
 
 from .. import config as config_module
 from .. import device as device_module
+from .. import load
 from ..ops import stft as stft_ops, viterbi as viterbi_ops
 from ..utils import audio as audio_module
 from . import pitch as pitch_module
@@ -88,6 +89,35 @@ def from_audio(
     if return_features:
         return harmonics, frames.T
     return harmonics
+
+
+def from_file(file, pitch_file=None, config=None, device='cuda', **kwargs):
+    """Harmonic contours of a wav file; see `from_audio`
+
+    pitch_file: a saved F0 contour to use as the first contour
+    """
+    config = config_module.default() if config is None else config
+    pitch = None if pitch_file is None else load.array(pitch_file)
+    return from_audio(
+        load.audio(file, config), pitch=pitch, config=config, device=device,
+        **kwargs)
+
+
+def from_file_to_file(file, output_file, pitch_file=None, config=None,
+                      device='cuda', **kwargs):
+    """Harmonic contours of a wav file, saved to `output_file`"""
+    load.save_array(
+        output_file, from_file(file, pitch_file, config, device, **kwargs))
+
+
+def from_files_to_files(files, output_files, pitch_files=None, config=None,
+                        device='cuda', **kwargs):
+    """Harmonic contours of several wav files, in turn"""
+    if pitch_files is None:
+        pitch_files = [None] * len(files)
+    for file, output_file, pitch_file in zip(files, output_files, pitch_files):
+        from_file_to_file(
+            file, output_file, pitch_file, config, device, **kwargs)
 
 
 ###############################################################################

@@ -19,6 +19,7 @@ from torch import nn
 
 from .. import config as config_module
 from .. import device as device_module
+from .. import load
 from ..models.modules import Conv1d, same_padding
 from ..ops import grid, viterbi
 
@@ -269,3 +270,25 @@ def from_audio(
         return estimate(
             audio.to(device), pitch_model, config, decoder,
             interp_unvoiced_at)
+
+
+def from_file(audio_file, pitch_model=None, config=None, device='cuda',
+              **kwargs):
+    """Pitch and periodicity of a wav file; see `from_audio`"""
+    config = config_module.default() if config is None else config
+    return from_audio(
+        load.audio(audio_file, config), pitch_model, config=config,
+        device=device, **kwargs)
+
+
+def from_file_to_file(audio_file, output_prefix, pitch_model=None,
+                      config=None, device='cuda', **kwargs):
+    """Pitch and periodicity of a wav file, saved as
+    `{prefix}{-viterbi}-pitch.npy` and `{prefix}{-viterbi}-periodicity.npy`
+    (the infix when config.VITERBI_DECODE_PITCH is set)"""
+    config = config_module.default() if config is None else config
+    pitch, periodicity = from_file(
+        audio_file, pitch_model, config, device, **kwargs)
+    viterbi = '-viterbi' if config.VITERBI_DECODE_PITCH else ''
+    load.save_array(f'{output_prefix}{viterbi}-pitch.npy', pitch)
+    load.save_array(f'{output_prefix}{viterbi}-periodicity.npy', periodicity)

@@ -1,10 +1,13 @@
 """Speech synthesis (counterpart of `promonet_tpu/synthesize/core.py`)
 
 `from_features` and `generate` follow the JAX package's exact-length
-path: features are padded to a bucketed frame count, the generator runs
-over the bucket, and the audio is trimmed to frames * HOPSIZE samples.
-`from_edited_audio` is the whole editing chain in one call, with every
-intermediate left on the device at its bucket's length.
+path: features are zero-padded to a bucketed frame count, the generator
+runs over the bucket, and the audio is trimmed to frames * HOPSIZE
+samples. `from_features_batched` runs utterances of one bucket together,
+padded by replicating their last frame, and returns the bucket's audio
+untrimmed. `from_edited_audio` is the whole editing chain in one call,
+with every intermediate left on the device at its bucket's length. The
+`from_file*` functions read features from disk and write wav files.
 """
 import numpy as np
 import torch
@@ -12,6 +15,7 @@ import torch
 from .. import convert
 from .. import device as device_module
 from .. import edit as edit_module
+from .. import load
 from .. import preprocess as preprocess_module
 from ..data import bucket_frames
 from ..ops import grid as grid_ops
@@ -50,6 +54,168 @@ def from_features(
     return generate(
         loudness, pitch, periodicity, ppg, generator, speaker,
         spectral_balance_ratio, loudness_ratio, device, output_dtype)
+
+
+def from_file(
+    loudness_file,
+    pitch_file,
+    periodicity_file,
+    ppg_file,
+    generator,
+    speaker=0,
+    spectral_balance_ratio=1.,
+    loudness_ratio=1.,
+    device='cuda'
+):
+    """Synthesize from features on disk
+
+    The PPG is resampled to the pitch's frame count (`load.ppg`), on
+    `device`.
+
+    Returns
+        audio: (1, T * HOPSIZE) numpy array
+    """
+    config = generator.config
+    pitch = load.array(pitch_file)
+    return from_features(
+        load.array(loudness_file),
+        pitch,
+        load.array(periodicity_file),
+        load.ppg(ppg_file, pitch.shape[-1], config, device),
+        generator,
+        speaker,
+        spectral_balance_ratio,
+        loudness_ratio,
+        device=device)
+
+
+def from_file_to_file(
+    loudness_file,
+    pitch_file,
+    periodicity_file,
+    ppg_file,
+    output_file,
+    generator,
+    speaker=0,
+    spectral_balance_ratio=1.,
+    loudness_ratio=1.,
+    device='cuda'
+):
+    """Synthesize from features on disk and save a 16-bit wav file"""
+    audio = from_file(
+        loudness_file, pitch_file, periodicity_file, ppg_file, generator,
+        speaker, spectral_balance_ratio, loudness_ratio, device)
+    audio_module.save(output_file, audio, generator.config.SAMPLE_RATE)
+
+
+def from_files_to_files(
+    loudness_files,
+    pitch_files,
+    periodicity_files,
+    ppg_files,
+    output_files,
+    generator,
+    speakers=None,
+    spectral_balance_ratio=1.,
+    loudness_ratio=1.,
+    device='cuda'
+):
+    """Synthesize several utterances from disk, one after another"""
+    if speakers is None:
+        speakers = [0] * len(loudness_files)
+    for *files, speaker in zip(
+        loudness_files, pitch_files, periodicity_files, ppg_files,
+        output_files, speakers
+    ):
+        from_file_to_file(
+            *files, generator, speaker=speaker,
+            spectral_balance_ratio=spectral_balance_ratio,
+            loudness_ratio=loudness_ratio, device=device)
+
+
+def from_features_batched(
+    feature_sets,
+    generator,
+    speakers=None,
+    spectral_balance_ratios=None,
+    loudness_ratios=None,
+    batch_size=8,
+    device='cuda'
+):
+    """Synthesize utterances of one frame bucket, `batch_size` per call
+
+    Each feature is padded to its bucket by replicating its last frame
+    (not with zeros, as `generate` pads), so log-domain consumers never
+    see a zero pitch. A group short of `batch_size` is filled by
+    repeating its rows, so every generator call has `batch_size` rows.
+    NaN pitch becomes 100 Hz.
+
+    Arguments
+        feature_sets: list of (loudness, pitch, periodicity, ppg), numpy
+            arrays or tensors at their true lengths, in the layouts of
+            `from_features`; all must fall in one bucket
+        generator: `models.Generator` with its weights, on `device`
+        speakers / spectral_balance_ratios / loudness_ratios: one per set;
+            None gives 0 / 1. / 1.
+
+    Returns
+        audio: (len(feature_sets), 1, bucket * HOPSIZE) float32 tensor on
+        `device`, untrimmed
+    """
+    device = device_module.resolve(device)
+    config = generator.config
+    count = len(feature_sets)
+    if speakers is None:
+        speakers = [0] * count
+    if spectral_balance_ratios is None:
+        spectral_balance_ratios = [1.] * count
+    if loudness_ratios is None:
+        loudness_ratios = [1.] * count
+
+    sets = [
+        tuple(_replicate_to_bucket(value, config, device) for value in values)
+        for values in feature_sets]
+    buckets = {values[1].shape[-1] for values in sets}
+    if len(buckets) != 1:
+        raise ValueError(f'feature sets span buckets {sorted(buckets)}')
+
+    outputs = []
+    with torch.no_grad():
+        for start in range(0, count, batch_size):
+            group = sets[start:start + batch_size]
+            rows = [i % len(group) for i in range(batch_size)]
+
+            def stack(index):
+                return torch.stack([group[row][index] for row in rows])
+
+            def per_row(values, dtype):
+                return torch.tensor(
+                    [values[start + row] for row in rows], dtype=dtype,
+                    device=device)
+
+            audio = generator(
+                stack(0),
+                torch.nan_to_num(stack(1).reshape(batch_size, -1), nan=100.),
+                stack(2).reshape(batch_size, -1),
+                stack(3),
+                per_row(speakers, torch.long),
+                per_row(spectral_balance_ratios, torch.float32),
+                per_row(loudness_ratios, torch.float32))
+            outputs.append(audio[:len(group)])
+    return outputs[0] if len(outputs) == 1 else torch.cat(outputs)
+
+
+def _replicate_to_bucket(value, config, device):
+    """A float32 feature on `device`, its last frame repeated to the bucket"""
+    value = torch.as_tensor(np.asarray(value, np.float32)) \
+        if not isinstance(value, torch.Tensor) else value.float()
+    value = value.to(device)
+    pad = bucket_frames(
+        value.shape[-1], config.INFERENCE_FRAME_BUCKETS) - value.shape[-1]
+    if not pad:
+        return value
+    return torch.cat(
+        (value, value[..., -1:].expand(*value.shape[:-1], pad)), -1)
 
 
 def from_edited_audio(

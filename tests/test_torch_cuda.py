@@ -438,6 +438,40 @@ def test_resblock_kernel_matches_plain_at_odd_shapes(
     assert not _within_bound(wrong, plain)
 
 
+# (T, C) of the four HiFi-GAN stages: at the 1280-frame bucket of the
+# main path's edited 10 s, and at the 64-frame window of the Streamer
+MAIN_PATH_SHAPES = [(10240, 256), (81920, 128), (163840, 64), (327680, 32)]
+STREAM_WINDOW_SHAPES = [(512, 256), (4096, 128), (8192, 64), (16384, 32)]
+
+
+@pytest.mark.parametrize('kernel_size', [3, 7, 11])
+@pytest.mark.parametrize('batch,frames,channels', [
+    (8, frames, channels) for frames, channels in MAIN_PATH_SHAPES] + [
+    (1, frames, channels) for frames, channels in STREAM_WINDOW_SHAPES])
+def test_resblock_kernel_matches_plain_on_the_serving_paths(
+    device, batch, frames, channels, kernel_size
+):
+    """Batched synthesis (eight rows) and the Streamer's window, with the
+    weights packed once as `models.hifigan.Block` holds them"""
+    x, weights, biases = _resblock_problem(
+        device, batch, frames, channels, kernel_size)
+    plain = resblock.reference_block(
+        x, weights, biases, DILATIONS, 0.1, torch.bfloat16).float()
+    launches = resblock.fused_block.launches
+    kernel = resblock.fused_block(
+        x, resblock.pack_weights(weights, biases), None, DILATIONS,
+        0.1).float()
+    torch.cuda.synchronize()
+    assert resblock.fused_block.launches == launches + 1
+    assert kernel.shape == plain.shape == (batch, frames, channels)
+    assert _within_bound(kernel, plain)
+    # Each row on its own gives the same row
+    if batch > 1:
+        row = resblock.fused_block(
+            x[3:4], weights, biases, DILATIONS, 0.1).float()
+        assert torch.equal(row, kernel[3:4])
+
+
 def test_resblock_kernel_rejects_what_it_does_not_take(device):
     x, weights, biases = _resblock_problem(device, 1, 40, 32, 3)
     with pytest.raises(TypeError, match='bfloat16'):

@@ -453,8 +453,14 @@ def test_synthesis_replaces_nan_pitch_and_trims(features):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, imported in a fresh interpreter"""
     code = (
-        'import sys, promonet_tpu_torch; '
+        'import importlib, pkgutil, sys, promonet_tpu_torch; '
+        'names = [m.name for m in pkgutil.walk_packages('
+        'promonet_tpu_torch.__path__, "promonet_tpu_torch.")]; '
+        '[importlib.import_module(name) for name in names]; '
+        'assert "promonet_tpu_torch.synthesize.stream" in names; '
+        'assert "promonet_tpu_torch.models.fargan" in names; '
         'bad = [m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "flax", "orbax", "promonet_tpu")]; '
         'print(bad); sys.exit(1 if bad else 0)')
