@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line; any failure exits non-zero:
+Phases, each printed as one JSON line with the seconds since the start
+(`elapsed_s`); any failure exits non-zero:
 
 1. device: the card's name and power limit.
 2. build: the three CUDA kernels from `promonet_tpu_torch/csrc`, one
@@ -83,7 +84,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    batched path, one streaming window, one FARGAN chunk and one Vocos
    call are then run under torch.profiler for their device events and
    busy time.
-12. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
+12. zero-shot path (configs/promonet-zeroshot.py, HiFi-GAN 512, bf16,
+   seeded generator and speaker encoder): preprocess.speaker.from_audio of
+   the 10 s audio on the card (finite, unit norm, on the card, within
+   1e-4 of the plain CPU path's), then synthesize.from_features with that
+   x-vector on the main path's edit (12 residual-block calls),
+   from_features_batched with eight x-vectors on the batched path's sets
+   (12 calls at batch 8, each row within the bf16 bound of its single
+   call) and a Streamer fed 10 frames at a time (12 calls per window,
+   interior correlation with offline synthesis above 0.9); each timed on
+   its second call and profiled once for the card's idle share.
+13. CLI path: the main path's seeded weights written as port checkpoints
+   under build/, then `python -m promonet_tpu_torch.preprocess` (all but
+   the speaker feature: 1 Viterbi decode, 2 log-frequency launches),
+   `...edit` (the main path's edit) and `...synthesize` (12 residual-block
+   calls) each in a process of its own with `--gpu 0`, each with its own
+   timeout; what they write against the same `from_files_to_files` calls
+   in this process: the same names, decoded pitch, periodicity and
+   harmonics equal, the other features within 1e-5 of their scale, the
+   audio within the bf16 bound. Each CLI's wall time includes its
+   process start and the kernel load from build/kernels/.
+14. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
    launches per Block, the time at each number of row tiles per thread
    block, the plain chain's and cuDNN's times and the bound; K2 with the
    forward pass and the backtrace timed apart, microseconds per frame
@@ -95,11 +116,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    kernel its
    launches, error (for the two decodes the largest difference in state
    index seen in this run's checks), time, plain and library times and
-   the card's bound, then the card's name and power limit, then
-   {"ok": true, "device": ...} as the last line.
+   the card's bound, the seconds of each phase, then the card's name and
+   power limit, then {"ok": true, "device": ...} as the last line.
 
 TF32 is off for every comparison (cuDNN and cuBLAS), so float32 work
-runs in float32.
+runs in float32, except in phase 13, where both sides run with PyTorch's
+defaults, as the CLI processes do.
 """
 import json
 import subprocess
@@ -158,8 +180,18 @@ EDIT = dict(
     pitch_shift_cents=400., time_stretch_ratio=1 / 1.4, loudness_scale_db=3.)
 
 
+# Seconds since the smoke started at each printed line, and the seconds
+# between one line and the next summed by the later line's phase
+START = time.perf_counter()
+PHASE_SECONDS = {}
+
+
 def emit(**record):
-    print(json.dumps(record), flush=True)
+    now = time.perf_counter() - START
+    since = now - sum(PHASE_SECONDS.values())
+    PHASE_SECONDS[record['phase']] = PHASE_SECONDS.get(
+        record['phase'], 0.) + since
+    print(json.dumps(dict(record, elapsed_s=now)), flush=True)
 
 
 def harmonic_audio(seconds, sample_rate):
@@ -305,29 +337,52 @@ def device_busy(torch, function):
         if events else None}
 
 
+def timed_call(torch, function, calls=2):
+    """The last of `calls` calls of function(), each with the launch counts
+    set to 0 just before it: (result, host seconds, launch counts)"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    for _ in range(calls):
+        reset_launch_counts(resblock, viterbi)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = function()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = launch_counts(resblock, viterbi)
+    return result, seconds, counts
+
+
+def idle_share(profiled):
+    """The share of a profiled call's wall time the card was idle"""
+    if profiled['device_busy_ms'] is None:
+        return None
+    return 1. - profiled['device_busy_ms'] / profiled['wall_ms']
+
+
+def batched_sets(port, config, device, pitch_model, ppg_model, frames):
+    """The batched path's eight feature sets: the 10 s audio extended to
+    its bucket, at eight pitch shifts; returns (bucket, sets)"""
+    hopsize, sample_rate = config.HOPSIZE, config.SAMPLE_RATE
+    bucket = port.data.bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS)
+    long_audio = harmonic_audio(
+        bucket * hopsize / sample_rate + 1., sample_rate)[:, :bucket * hopsize]
+    base = port.preprocess.from_audio(
+        long_audio, pitch_model, ppg_model, loudness_bands=None,
+        config=config, device=device)
+    shifts = (-300., -200., -100., 0., 100., 200., 300., 400.)
+    return bucket, [port.edit.from_features(
+        *base, pitch_shift_cents=cents, config=config) for cents in shifts]
+
+
 def serving_paths(torch, port, config, device, audio, features, pitch_model,
                   ppg_model, generator):
     """Phases 7 to 11: batched, windowed and exact-state streaming
     synthesis, the FARGAN and Vocos backbones, and the file-level entry
     points, each at full width; returns each path's launch counts"""
-    from promonet_tpu_torch.ops import resblock, viterbi
     hopsize, sample_rate = config.HOPSIZE, config.SAMPLE_RATE
     frames = features[1].shape[-1]
     host = [x.cpu().numpy() for x in features]
     path_launches = {}
-
-    def timed(function, calls=2):
-        """The last of `calls` calls, each with the counts set to 0 just
-        before it: (result, host seconds, launch counts)"""
-        for _ in range(calls):
-            reset_launch_counts(resblock, viterbi)
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            result = function()
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - start
-            counts = launch_counts(resblock, viterbi)
-        return result, seconds, counts
 
     def expect(path, counts, expected):
         path_launches[path] = counts
@@ -337,22 +392,15 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
     # 7. Eight utterances of one bucket in one generator call: the 10 s
     # audio extended to the 896-frame bucket, at eight pitch shifts, so
     # that no padding enters the comparison with single calls
-    bucket = port.data.bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS)
-    long_audio = harmonic_audio(
-        bucket * hopsize / sample_rate + 1., sample_rate)[:, :bucket * hopsize]
-    base = port.preprocess.from_audio(
-        long_audio, pitch_model, ppg_model, loudness_bands=None,
-        config=config, device=device)
-    shifts = (-300., -200., -100., 0., 100., 200., 300., 400.)
-    sets = [port.edit.from_features(
-        *base, pitch_shift_cents=cents, config=config) for cents in shifts]
+    bucket, sets = batched_sets(
+        port, config, device, pitch_model, ppg_model, frames)
     speakers = list(range(len(sets)))
-    batched, batched_seconds, counts = timed(
-        lambda: port.synthesize.from_features_batched(
+    batched, batched_seconds, counts = timed_call(
+        torch, lambda: port.synthesize.from_features_batched(
             sets, generator, speakers=speakers, device=device))
     expect('batched', counts, {'resblock': 12, 'viterbi': 0,
                                'viterbi_logfreq': 0})
-    singles, singles_seconds, _ = timed(lambda: [
+    singles, singles_seconds, _ = timed_call(torch, lambda: [
         port.synthesize.from_features(
             *values, generator=generator, speaker=speaker, device=device)
         for values, speaker in zip(sets, speakers)])
@@ -390,7 +438,8 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
     streamer = port.synthesize.Streamer(generator, speaker=3, device=device)
     if (bucket, streamer.window) != (BATCHED_BUCKET, STREAM_WINDOW):
         raise AssertionError('K1 was checked at other shapes than these')
-    streamed, stream_seconds, counts = timed(lambda: stream(streamer, 10))
+    streamed, stream_seconds, counts = timed_call(
+        torch, lambda: stream(streamer, 10))
     windows = -(-frames // streamer.chunk)
     expect('stream', counts, {'resblock': 12 * windows, 'viterbi': 0,
                               'viterbi_logfreq': 0})
@@ -421,13 +470,13 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
     fargan_config = port.config.load(ROOT / 'configs' / 'fargan.py')
     fargan = port.models.init.seeded(
         port.models.Generator(fargan_config), 4).to(device).eval()
-    offline, offline_seconds, counts = timed(
-        lambda: port.synthesize.from_features(
+    offline, offline_seconds, counts = timed_call(
+        torch, lambda: port.synthesize.from_features(
             *features, generator=fargan, speaker=3, device=device))
     expect('fargan', counts, {'resblock': 0, 'viterbi': 0,
                               'viterbi_logfreq': 0})
     chunk = 32
-    chunked, chunked_seconds, counts = timed(lambda: stream(
+    chunked, chunked_seconds, counts = timed_call(torch, lambda: stream(
         port.synthesize.FARGANStreamer(
             fargan, speaker=3, chunk_frames=chunk, device=device), chunk))
     first_chunk = port.synthesize.FARGANStreamer(
@@ -466,8 +515,8 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
         ROOT / 'configs' / 'baselines' / 'vocos.py')
     vocos = port.models.init.seeded(
         port.models.Generator(vocos_config), 5).to(device).eval()
-    output, vocos_seconds, counts = timed(
-        lambda: port.synthesize.from_features(
+    output, vocos_seconds, counts = timed_call(
+        torch, lambda: port.synthesize.from_features(
             *features, generator=vocos, speaker=3, device=device))
     expect('vocos', counts, {'resblock': 0, 'viterbi': 0,
                              'viterbi_logfreq': 0})
@@ -519,7 +568,7 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
                 start = time.perf_counter()
             return stage_ms
 
-        stage_ms, file_seconds, counts = timed(files)
+        stage_ms, file_seconds, counts = timed_call(torch, files)
         expect('file', counts, {'resblock': 12, 'viterbi': 1,
                                 'viterbi_logfreq': 1})
         names = sorted(path.name for path in directory.iterdir())
@@ -552,6 +601,313 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
     return path_launches
 
 
+def zeroshot_path(torch, port, device, audio, features, edited, pitch_model,
+                  ppg_model):
+    """Phase 12: zero-shot speakers at full width
+    (configs/promonet-zeroshot.py, HiFi-GAN 512, bf16, seeded generator
+    and speaker encoder): the x-vector of the 10 s audio, then synthesis
+    with x-vectors through from_features, from_features_batched (eight of
+    them) and a Streamer; returns each call's launch counts"""
+    config = port.config.load(ROOT / 'configs' / 'promonet-zeroshot.py')
+    hopsize, sample_rate = config.HOPSIZE, config.SAMPLE_RATE
+    speaker = port.preprocess.speaker
+    generator = port.models.init.seeded(
+        port.models.Generator(config), 6).to(device).eval()
+    encoder = port.models.init.seeded(
+        port.preprocess.SpeakerEncoder(), 7).to(device).eval()
+    launches = {}
+
+    def run(name, function, expected):
+        result, seconds, counts = timed_call(torch, function)
+        launches[name] = counts
+        if counts != expected:
+            raise AssertionError(f'zero-shot {name} launches {counts}')
+        profiled = device_busy(torch, function)
+        return result, dict(ms=seconds * 1e3, launches=counts,
+                            profiled_call=profiled,
+                            idle_share=idle_share(profiled))
+
+    # The x-vector on the card, against the plain CPU path in float32:
+    # unit vectors, held to 1e-4 per element (cuDNN's float32 sums in
+    # another order than the CPU's)
+    none = {'resblock': 0, 'viterbi': 0, 'viterbi_logfreq': 0}
+    xvector, record = run('embedding', lambda: speaker.from_audio(
+        audio, encoder, config=config, device=device), none)
+    cpu_encoder = port.preprocess.SpeakerEncoder()
+    cpu_encoder.load_state_dict(
+        {name: value.cpu() for name, value in encoder.state_dict().items()})
+    reference = speaker.from_audio(audio, cpu_encoder, config=config,
+                                   device='cpu')
+    record.update(
+        phase='zeroshot_embedding', device=xvector.device.type,
+        shape=list(xvector.shape),
+        norm=float(torch.linalg.vector_norm(xvector)),
+        finite=bool(torch.isfinite(xvector).all()),
+        max_abs_err_vs_cpu=float((xvector.cpu() - reference).abs().max()))
+    emit(**record)
+    if record['device'] != torch.device(device).type or record['shape'] != [
+            config.WAVLM_EMBEDDING_CHANNELS] or not record['finite'] or \
+            abs(record['norm'] - 1) > 1e-4 or \
+            record['max_abs_err_vs_cpu'] > 1e-4:
+        raise AssertionError('the speaker embedding is wrong')
+
+    # The main path's edit (bucket 1280) with that x-vector
+    k1 = {'resblock': 12, 'viterbi': 0, 'viterbi_logfreq': 0}
+    output, record = run(
+        'from_features', lambda: port.synthesize.from_features(
+            *edited, generator=generator, speaker=xvector, device=device),
+        k1)
+    frames = edited[1].shape[-1]
+    record.update(phase='zeroshot_from_features', frames=frames,
+                  samples=output.shape[-1],
+                  finite=bool(np.isfinite(output).all()))
+    emit(**record)
+    if output.shape != (1, frames * hopsize) or not record['finite']:
+        raise AssertionError('zero-shot from_features is wrong')
+
+    # Eight x-vectors (of the first 3 to 10 s of the audio) on the batched
+    # path's eight sets, one call at B = 8; each row within K1's bf16 bound
+    # of its own from_features call
+    xvectors = [speaker.from_audio(
+        audio[:, :(3 + k) * sample_rate], encoder, config=config,
+        device=device) for k in range(8)]
+    bucket, sets = batched_sets(
+        port, config, device, pitch_model, ppg_model,
+        features[1].shape[-1])
+    batched, record = run(
+        'batched', lambda: port.synthesize.from_features_batched(
+            sets, generator, speakers=xvectors, device=device), k1)
+    singles = [
+        torch.from_numpy(port.synthesize.from_features(
+            *values, generator=generator, speaker=vector,
+            device=device)).to(device)
+        for values, vector in zip(sets, xvectors)]
+    rows_within = [within_bf16_bound(torch, row, single)
+                   for row, single in zip(batched, singles)]
+    record.update(
+        phase='zeroshot_batched', utterances=len(sets), frames=bucket,
+        shape=list(batched.shape), ms_per_utterance=record['ms'] / len(sets),
+        rows_within_bf16_bound=rows_within,
+        row_max_abs_err=[float((row - single).abs().max())
+                         for row, single in zip(batched, singles)],
+        finite=bool(torch.isfinite(batched).all()))
+    emit(**record)
+    if record['shape'] != [len(sets), 1, bucket * hopsize] or \
+            not record['finite'] or not all(rows_within):
+        raise AssertionError('zero-shot batched synthesis is wrong')
+
+    # A Streamer with the x-vector, fed the main path's features 10 frames
+    # at a time; the audio against one offline call
+    host = [x.cpu().numpy() for x in features]
+    frames = host[1].shape[-1]
+
+    def stream():
+        streamer = port.synthesize.Streamer(
+            generator, speaker=xvector, device=device)
+        pieces = [streamer.feed(*(x[:, start:start + 10] for x in host))
+                  for start in range(0, frames, 10)]
+        return np.concatenate(pieces + [streamer.flush()], axis=-1)
+
+    windows = -(-frames // 32)
+    streamed, seconds, counts = timed_call(torch, stream)
+    launches['stream'] = counts
+    window = port.synthesize.Streamer(generator, speaker=xvector,
+                                      device=device)
+    profiled = device_busy(torch, lambda: window.feed(*(
+        x[:, :window.chunk + window.right] for x in host)))
+    offline = port.synthesize.from_features(
+        *features, generator=generator, speaker=xvector, device=device)
+    interior = slice(4096, frames * hopsize - 4096)
+    record = dict(
+        phase='zeroshot_stream', frames=frames, windows=windows,
+        ms=seconds * 1e3, ms_per_window=seconds * 1e3 / windows,
+        launches=counts, profiled_window=profiled,
+        idle_share=idle_share(profiled), samples=streamed.shape[-1],
+        interior_correlation=correlation(
+            streamed[0, interior], offline[0, interior]),
+        finite=bool(np.isfinite(streamed).all()))
+    emit(**record)
+    if counts != {'resblock': 12 * windows, 'viterbi': 0,
+                  'viterbi_logfreq': 0}:
+        raise AssertionError(f'zero-shot stream launches {counts}')
+    if streamed.shape != (1, frames * hopsize) or not record['finite'] or \
+            record['interior_correlation'] <= 0.9:
+        raise AssertionError('zero-shot streaming is wrong')
+    return launches
+
+
+# Each CLI in a process of its own: the stage's `__main__` run as
+# `python -m` runs it, then, as the last line of its output, the launch
+# counts of that process and the seconds of the package's import and of
+# the stage's main code
+CLI_RUNNER = """
+import json, runpy, sys, time
+start = time.perf_counter()
+from promonet_tpu_torch.ops import resblock, viterbi
+imported = time.perf_counter()
+stage = sys.argv.pop(1)
+runpy.run_module('promonet_tpu_torch.' + stage, run_name='__main__',
+                 alter_sys=True)
+print(json.dumps({'launches': {
+    'resblock': resblock.fused_block.launches,
+    'viterbi': viterbi.decode.launches,
+    'viterbi_logfreq': viterbi.decode_logfreq.launches},
+    'import_s': imported - start, 'main_s': time.perf_counter() - imported}))
+"""
+
+# Seconds each CLI process may take, its start and the kernel load included
+CLI_TIMEOUTS = {'preprocess': 180, 'edit': 120, 'synthesize': 150}
+
+
+def cli_path(torch, port, device, audio, config, pitch_model, ppg_model,
+             generator, tf32_defaults):
+    """Phase 13: the three CLIs as processes of their own on the card, with
+    the smoke's seeded weights written as port checkpoints under build/,
+    against the same calls of `from_files_to_files` in this process;
+    returns each CLI's launch counts"""
+    sample_rate = config.SAMPLE_RATE
+    (ROOT / 'build').mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as directory:
+        directory = Path(directory)
+        checkpoints = directory / 'checkpoints'
+        checkpoint = port.utils.checkpoint
+        checkpoint.save(checkpoints / 'pitch-00000001.pt',
+                        pitch_model.state_dict(), step=1)
+        checkpoint.save(checkpoints / 'ppg-00000002.pt',
+                        ppg_model.state_dict(), step=2)
+        generator_file = checkpoints / 'generator-00000003.pt'
+        checkpoint.save(generator_file, generator.state_dict(), step=3)
+        config_file = directory / 'cli.py'
+        config_file.write_text(
+            "MODULE = 'promonet_tpu_torch'\n"
+            f'CHECKPOINTS_DIR = {str(checkpoints)!r}\n')
+        cli_config = port.config.load(config_file)
+        wav = directory / 'speech.wav'
+        port.utils.audio.save(wav, audio, sample_rate)
+        cli, ours = directory / 'cli', directory / 'ours'
+        cli.mkdir()
+        ours.mkdir()
+        infix = '-viterbi' if config.VITERBI_DECODE_PITCH else ''
+
+        def inputs(folder, prefix):
+            return [folder / f'{prefix}{name}.npy' for name in (
+                '-loudness', f'{infix}-pitch', f'{infix}-periodicity',
+                '-ppg')]
+
+        def flags(name, files):
+            return [f'--{name}', *map(str, files)]
+
+        edit = [value for name, amount in EDIT.items()
+                for value in (f'--{name}', repr(amount))]
+        stages = (
+            ('preprocess',
+             ['--files', str(wav), '--output_prefixes', str(cli / 'speech'),
+              '--features', 'loudness', 'pitch', 'periodicity', 'ppg',
+              'harmonics'],
+             {'resblock': 0, 'viterbi': 1, 'viterbi_logfreq': 2}),
+            ('edit',
+             [*(value for name, file in zip(
+                 ('loudness', 'pitch', 'periodicity', 'ppg'),
+                 inputs(cli, 'speech')) for value in flags(
+                     f'{name}_files', [file])),
+              '--output_prefixes', str(cli / 'edited'), *edit],
+             {'resblock': 0, 'viterbi': 0, 'viterbi_logfreq': 0}),
+            ('synthesize',
+             [*(value for name, file in zip(
+                 ('loudness', 'pitch', 'periodicity', 'ppg'),
+                 inputs(cli, 'edited')) for value in flags(
+                     f'{name}_files', [file])),
+              '--output_files', str(cli / 'edited.wav'), '--speakers', '3',
+              '--checkpoint', str(generator_file)],
+             {'resblock': 12, 'viterbi': 0, 'viterbi_logfreq': 0}))
+        device = torch.device(device)
+        gpu = str(device.index or 0) if device.type == 'cuda' else '-1'
+        wall_ms, launches, seconds = {}, {}, {}
+        for stage, arguments, expected in stages:
+            start = time.perf_counter()
+            result = subprocess.run(
+                [sys.executable, '-c', CLI_RUNNER, stage, *arguments,
+                 '--config', str(config_file), '--gpu', gpu],
+                cwd=ROOT, capture_output=True, text=True,
+                timeout=CLI_TIMEOUTS[stage])
+            wall_ms[stage] = (time.perf_counter() - start) * 1e3
+            if result.returncode:
+                raise AssertionError(
+                    f'the {stage} CLI exited {result.returncode}:\n'
+                    f'{result.stderr[-4000:]}')
+            report = json.loads(result.stdout.splitlines()[-1])
+            launches[stage] = report.pop('launches')
+            seconds[stage] = report
+            if launches[stage] != expected:
+                raise AssertionError(
+                    f'the {stage} CLI launched {launches[stage]}')
+
+        # The same stages in this process, each from the CLI's inputs, with
+        # PyTorch's default TF32 settings as the CLI processes have them
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32_defaults
+        try:
+            port.preprocess.from_files_to_files(
+                [wav], port.load.pitch_model(config=cli_config, device=device),
+                port.load.ppg_model(config=cli_config, device=device),
+                [ours / 'speech'], ('loudness', 'pitch', 'periodicity', 'ppg',
+                                    'harmonics'),
+                config=cli_config, device=device)
+            port.edit.from_files_to_files(
+                *([file] for file in inputs(cli, 'speech')),
+                [ours / 'edited'], config=cli_config, device=device, **EDIT)
+            port.synthesize.from_files_to_files(
+                *([file] for file in inputs(cli, 'edited')),
+                [ours / 'edited.wav'],
+                port.load.generator(generator_file, cli_config, device),
+                speakers=[3], device=device)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        names = sorted(path.name for path in cli.iterdir())
+        difference = {
+            name: float(np.abs(
+                port.load.array(cli / name) - port.load.array(ours / name)
+            ).max())
+            for name in names if name.endswith('.npy')}
+        # Decoded paths equal (K2: pitch and periodicity; K3: harmonics);
+        # the float features within 1e-5 of their scale; the audio within
+        # K1's bf16 bound
+        decoded = [name for name in names if name.startswith('speech') and (
+            'pitch' in name or 'periodicity' in name or 'harmonics' in name)]
+        within = all(
+            difference[name] <= 1e-5 * max(1., float(np.abs(
+                port.load.array(ours / name)).max()))
+            for name in difference)
+        cli_audio, rate = port.utils.audio.load(cli / 'edited.wav')
+        our_audio, _ = port.utils.audio.load(ours / 'edited.wav')
+        record = dict(
+            phase='cli_path', wall_ms=wall_ms, launches=launches,
+            import_and_main_s=seconds,
+            files=names,
+            names_as_in_process=names == sorted(
+                path.name for path in ours.iterdir()),
+            max_abs_difference=difference,
+            decoded_equal=all(difference[name] == 0 for name in decoded),
+            features_within_tolerance=within,
+            audio_max_abs_difference=float(np.abs(
+                cli_audio - our_audio).max()),
+            audio_within_bf16_bound=within_bf16_bound(
+                torch, torch.from_numpy(cli_audio),
+                torch.from_numpy(our_audio)),
+            samples=cli_audio.shape[-1], sample_rate=rate)
+        emit(**record)
+        out_frames = round(audio.shape[-1] // config.HOPSIZE * 1.4)
+        if not record['names_as_in_process'] or len(decoded) != 3 or \
+                not record['decoded_equal'] or not within or \
+                not record['audio_within_bf16_bound'] or rate != sample_rate \
+                or cli_audio.shape != (1, out_frames * config.HOPSIZE):
+            raise AssertionError('the CLIs disagree with the in-process calls')
+    return launches
+
+
 def main():
     try:
         import torch
@@ -570,6 +926,9 @@ def main():
     import promonet_tpu_torch as port
     from promonet_tpu_torch.ops import _build, resblock, viterbi
 
+    # PyTorch's own settings, which the CLI processes of phase 13 run with
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device('cuda')
@@ -837,6 +1196,7 @@ def main():
             raise AssertionError('main path output is wrong')
         if launches != {'resblock': 12, 'viterbi': 1}:
             raise AssertionError(f'main path launches {launches}')
+    edited_main = edited
 
     # Per-stage device time of the main path (second call's inputs)
     stage_ms = {
@@ -897,7 +1257,7 @@ def main():
         raise AssertionError('card and CPU reference disagree')
 
     # 6. Second path: harmonic contours, then audio in → edited audio out
-    all_features = port.preprocess.core.FEATURES
+    all_features = port.preprocess.core.PADDED + ('harmonics',)
     harmonics_module = port.preprocess.harmonics
     for call in (1, 2):
         resblock.fused_block.launches = 0
@@ -1030,6 +1390,17 @@ def main():
         torch, port, config, device, audio, features, pitch_model, ppg_model,
         generator)
     emit(phase='serving_paths', launches=path_launches)
+
+    # 12 and 13. Zero-shot speakers, and the three CLIs in processes of
+    # their own
+    path_launches['zeroshot'] = zeroshot_path(
+        torch, port, device, audio, features, edited_main, pitch_model,
+        ppg_model)
+    path_launches['cli'] = cli_path(
+        torch, port, device, audio, config, pitch_model, ppg_model,
+        generator, tf32_defaults)
+    emit(phase='speaker_and_cli_paths', launches={
+        name: path_launches[name] for name in ('zeroshot', 'cli')})
 
     # 7. Kernel times at the main path's shapes
     k1 = dict(ms=0., plain_ms=0., library_ms=0., bound_ms=0.)
@@ -1220,6 +1591,7 @@ def main():
              bound_by='operations' if k3_ops / PEAK_FP32 >
              k3_bytes / PEAK_BYTES else 'bytes',
              library_ms=None)]
+    emit(phase='phase_seconds', seconds=dict(PHASE_SECONDS))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -8,15 +8,19 @@ PPG-aware time stretch, loudness scale) → `synthesize.from_features`
 (HiFi-GAN, FARGAN or Vocos), and `synthesize.from_edited_audio` for the
 whole chain in one call; batched synthesis
 (`synthesize.from_features_batched`), streaming (`synthesize.Streamer`,
-`synthesize.FARGANStreamer`) and the `from_file*` entry points that read
-and write the JAX package's files. Each Pallas kernel of the JAX package is a hand-written CUDA kernel
-here (`csrc/`), beside a plain PyTorch version that serves CPU tensors.
-Entry points run on the GPU unless called with device='cpu'.
+`synthesize.FARGANStreamer`), zero-shot speakers (`preprocess.speaker`,
+`ZERO_SHOT` generators), the `from_file*` entry points that read and
+write the JAX package's files, and the command line (`python -m
+promonet_tpu_torch.{preprocess,edit,synthesize}`). Each Pallas kernel of
+the JAX package is a hand-written CUDA kernel here (`csrc/`), beside a
+plain PyTorch version that serves CPU tensors. Entry points run on the
+GPU unless called with device='cpu'.
 
 The port imports neither JAX nor the JAX package. Configuration is an
-explicit `config.Config` (see `config.load`); weights come from the JAX
-package's checkpoints through `models.bridge`, or from a seed through
-`models.init.seeded`.
+explicit `config.Config` (see `config.load`); weights come from the
+port's checkpoint files (`utils.checkpoint`, read by `load`), converted
+from the JAX package's by `scripts/convert_checkpoints.py` through
+`models.bridge`, or from a seed through `models.init.seeded`.
 """
 from . import config
 from . import convert

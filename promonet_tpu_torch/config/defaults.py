@@ -12,6 +12,15 @@ from pathlib import Path
 
 
 ###############################################################################
+# Metadata
+###############################################################################
+
+
+# Name identifying this configuration (selects the run directory)
+CONFIG = 'promonet'
+
+
+###############################################################################
 # Audio
 ###############################################################################
 
@@ -110,6 +119,14 @@ SYNTHETIC_SPEAKERS = 24
 # Shipped assets of the JAX package (pitch statistics), read by path only
 ASSETS_DIR = Path(__file__).parent.parent.parent / 'promonet_tpu' / 'assets'
 
+# The port's checkpoints of the pitch CNN, the PPG encoder and the speaker
+# encoder (`<name>-<step:08d>.pt`, written by scripts/convert_checkpoints.py)
+CHECKPOINTS_DIR = Path(__file__).parent.parent.parent / 'checkpoints_torch'
+
+# Training runs; a generator without a checkpoint comes from
+# RUNS_DIR / CONFIG (`load.generator`)
+RUNS_DIR = Path(__file__).parent.parent.parent / 'runs'
+
 
 ###############################################################################
 # Generator
@@ -154,6 +171,9 @@ HIFIGAN_UPSAMPLE_RATES = [8, 8, 2, 2]
 # Width of the speaker identity vector
 SPEAKER_CHANNELS = 256
 
+# Width of the x-vectors a zero-shot generator conditions on
+WAVLM_EMBEDDING_CHANNELS = 512
+
 # Vocos: ConvNeXt trunk width
 VOCOS_CHANNELS = 512
 
@@ -163,8 +183,8 @@ VOCOS_POINTWISE_CHANNELS = 1536
 # Vocos: ConvNeXt depth
 VOCOS_LAYERS = 6
 
-# Condition on WavLM x-vectors instead of a learned speaker table
-# (not ported)
+# Condition on (WAVLM_EMBEDDING_CHANNELS,) x-vectors instead of a learned
+# speaker table
 ZERO_SHOT = False
 
 
@@ -175,6 +195,10 @@ ZERO_SHOT = False
 
 # Computation dtype of the generator ('bfloat16' or 'float32')
 PRECISION = 'bfloat16'
+
+# Generator checkpoint used when none is passed; None takes the newest
+# port checkpoint under RUNS_DIR / CONFIG (`load.generator`)
+DEFAULT_CHECKPOINT = None
 
 # Pad-to-bucket frame counts for variable-length inference. The port
 # keeps the JAX package's ladder: padding changes the tail frames of the

@@ -1,8 +1,15 @@
 """Loaders (counterpart of `promonet_tpu/load.py`)
 
 Feature files are the JAX package's: `.npy` arrays, preferred, or
-PyTorch `.pt` tensors, read with `torch.load(weights_only=True)`.
+PyTorch `.pt` tensors, read with `torch.load(weights_only=True)`. Models
+come from the port's own checkpoints (`utils.checkpoint`): the generator
+from a file or a run directory, the pitch CNN, the PPG encoder and the
+speaker encoder from config.CHECKPOINTS_DIR. Where no checkpoint is
+found, each falls back as the JAX package does (seeded weights, or no
+speaker encoder, which leaves the spectral embedding) and says so on
+stderr.
 """
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -12,6 +19,7 @@ from . import config as config_module
 from . import device as device_module
 from .ops import grid
 from .utils import audio as audio_module
+from .utils import checkpoint as checkpoint_module
 
 
 def array(file):
@@ -119,3 +127,143 @@ def pitch_distribution(config=None):
             np.log(config.FMIN),
             np.log(config.FMAX),
             config.PITCH_BINS)).astype(np.float32)
+
+
+###############################################################################
+# Models (each loader imports its model's module when called: the models
+# import this module)
+###############################################################################
+
+
+def generator(checkpoint=None, config=None, device='cuda'):
+    """A `models.Generator` with its weights, on `device`, in eval mode
+
+    Resolved as the JAX package's `synthesize` resolves its generator:
+    - `checkpoint` a file: its weights;
+    - `checkpoint` a directory: its newest readable `generator-*.pt`;
+    - None: config.DEFAULT_CHECKPOINT where set, else the newest port
+      checkpoint under RUNS_DIR / CONFIG if its weights fit the
+      configuration; else weights seeded from 0, with a notice.
+    """
+    from .models import Generator, init
+
+    config = config_module.default() if config is None else config
+    device = device_module.resolve(device)
+    model = Generator(config)
+    if checkpoint is None and config.DEFAULT_CHECKPOINT is not None:
+        checkpoint = config.DEFAULT_CHECKPOINT
+    if checkpoint is not None:
+        model.load_state_dict(_generator_params(Path(checkpoint)))
+        return model.to(device).eval()
+
+    run = Path(config.RUNS_DIR) / config.CONFIG
+    resolved = checkpoint_module.latest_path(run)
+    if resolved is None:
+        _notice(f'no generator checkpoint under {run}; using random init')
+        return init.seeded(model, 0).to(device).eval()
+    params = checkpoint_module.load(resolved)['params']
+    expected = model.state_dict()
+    if set(params) != set(expected) or any(
+            params[name].shape != value.shape
+            for name, value in expected.items()):
+        _notice(
+            f'default checkpoint {resolved} does not match the active '
+            'configuration (load its config, e.g. '
+            'PROMONET_TPU_TORCH_CONFIG=<run>/<config>.py); using random '
+            'init')
+        return init.seeded(model, 0).to(device).eval()
+    model.load_state_dict(params)
+    return model.to(device).eval()
+
+
+def pitch_model(path=None, config=None, device='cuda'):
+    """The pitch CNN with its weights, on `device`, in eval mode
+
+    path None takes the newest `pitch-*.pt` in config.CHECKPOINTS_DIR;
+    without one, weights seeded from 0, with a notice. The checkpoint's
+    calibrated voicing threshold is kept on the model.
+    """
+    from .preprocess import PitchCNN
+
+    config = config_module.default() if config is None else config
+    model = PitchCNN()
+    payload = _payload(path, config, 'pitch', 'using random init')
+    if payload is not None and 'voicing_threshold' in payload:
+        model.voicing_threshold = float(payload['voicing_threshold'])
+    return _with_weights(model, payload, device)
+
+
+def ppg_model(path=None, config=None, device='cuda'):
+    """The PPG encoder with its weights, on `device`, in eval mode
+
+    path None takes the newest `ppg-*.pt` in config.CHECKPOINTS_DIR;
+    without one, weights seeded from 0, with a notice.
+    """
+    from .preprocess import PPGEncoder
+
+    config = config_module.default() if config is None else config
+    model = PPGEncoder(
+        num_mels=config.NUM_MELS, num_phonemes=config.PPG_CHANNELS)
+    return _with_weights(
+        model, _payload(path, config, 'ppg', 'using random init'), device)
+
+
+def speaker_encoder(path=None, config=None, device='cuda'):
+    """The speaker encoder with its weights, on `device`, in eval mode
+
+    path None takes the newest `speaker-*.pt` in config.CHECKPOINTS_DIR;
+    without one, None, with a notice: `preprocess.speaker.from_audio`
+    then takes the spectral embedding.
+    """
+    from .preprocess import SpeakerEncoder
+
+    config = config_module.default() if config is None else config
+    payload = _payload(
+        path, config, 'speaker', 'using the spectral embedding')
+    if payload is None:
+        return None
+    model = SpeakerEncoder(
+        num_mels=config.NUM_MELS,
+        embedding_channels=config.WAVLM_EMBEDDING_CHANNELS)
+    return _with_weights(model, payload, device)
+
+
+def _generator_params(checkpoint):
+    """The state dict of a generator checkpoint file or run directory"""
+    if checkpoint.is_dir():
+        resolved = checkpoint_module.latest_path(checkpoint)
+        if resolved is None:
+            raise FileNotFoundError(
+                f'no readable generator-*.pt checkpoint in {checkpoint}')
+        checkpoint = resolved
+    return checkpoint_module.load(checkpoint)['params']
+
+
+def _payload(path, config, prefix, fallback):
+    """A checkpoint's payload: `path`, or the newest `<prefix>-*.pt` in
+    config.CHECKPOINTS_DIR; None, with a notice, where there is none"""
+    if path is None:
+        path = checkpoint_module.latest_path(
+            config.CHECKPOINTS_DIR, f'{prefix}-*')
+        if path is None:
+            _notice(
+                f'no {prefix} checkpoint in {config.CHECKPOINTS_DIR}; '
+                f'{fallback}')
+            return None
+    return checkpoint_module.load(path)
+
+
+def _with_weights(model, payload, device):
+    """`model` with the payload's weights, or seeded from 0 without one"""
+    from .models import init
+
+    device = device_module.resolve(device)
+    if payload is None:
+        init.seeded(model, 0)
+    else:
+        model.load_state_dict(payload['params'])
+    return model.to(device).eval()
+
+
+def _notice(message):
+    print(f'promonet_tpu_torch: {message}', file=sys.stderr)

@@ -12,10 +12,10 @@ along k; dense kernels, GRU kernels included, are transposed to (out,
 in), which keeps the GRU's gate order r, z, n. Every leaf must be used
 exactly once: an unmapped or left-over leaf raises.
 
-Only the generator (with any of its backbones), the pitch CNN and the
-PPG encoder have weights. The
-harmonics path, the 'dsp' pitch front end and both Viterbi decodes have
-no parameters, so there is no converter for them.
+Only the generator (with any of its backbones and either speaker
+conditioning), the pitch CNN, the PPG encoder and the speaker encoder
+have weights. The harmonics path, the 'dsp' pitch front end and both
+Viterbi decodes have no parameters, so there is no converter for them.
 """
 import numpy as np
 import torch
@@ -98,12 +98,19 @@ def _wn_dense(leaves, path):
 def generator_state_dict(params):
     """`promonet_tpu.models.Generator` params → `models.Generator` state
 
-    The backbone (HiFi-GAN, FARGAN or Vocos) is told by its leaves.
+    The backbone (HiFi-GAN, FARGAN or Vocos) and the speaker conditioning
+    (a learned table, or the zero-shot Dense over x-vectors) are told by
+    their leaves.
     """
     leaves = _Leaves(params)
-    state = {
-        'speaker_embedding.weight':
-            leaves.take('speaker_embedding/embedding')}
+    if leaves.has('speaker_embedding/kernel'):
+        state = {
+            'speaker_embedding.weight': _dense(leaves, 'speaker_embedding'),
+            'speaker_embedding.bias': leaves.take('speaker_embedding/bias')}
+    else:
+        state = {
+            'speaker_embedding.weight':
+                leaves.take('speaker_embedding/embedding')}
     if leaves.has('pitch_embed/embedding'):
         state['pitch_embed.weight'] = leaves.take('pitch_embed/embedding')
     if leaves.has('backbone/ConditioningNetwork_0/Dense_0/kernel'):
@@ -229,5 +236,11 @@ def pitch_state_dict(params, layers=6):
 
 def ppg_state_dict(params, layers=6):
     """`PPGEncoder` params → `preprocess.ppg.PPGEncoder` state"""
+    leaves = _Leaves(params)
+    return leaves.finish(_conv_norm_stack(leaves, layers))
+
+
+def speaker_state_dict(params, layers=4):
+    """`SpeakerEncoder` params → `preprocess.speaker.SpeakerEncoder` state"""
     leaves = _Leaves(params)
     return leaves.finish(_conv_norm_stack(leaves, layers))

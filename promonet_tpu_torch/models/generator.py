@@ -2,7 +2,9 @@
 
 Counterpart of `promonet_tpu/models/generator.py`, with the backbones its
 `BaseGenerator.setup` dispatches on `MODEL` ('hifigan', 'fargan',
-'vocos') and a learned speaker table. Public layouts are the JAX
+'vocos') and its two speaker conditionings: a learned table of
+NUM_SPEAKERS rows, or under ZERO_SHOT a Dense layer over
+(WAVLM_EMBEDDING_CHANNELS,) x-vectors. Public layouts are the JAX
 package's: features (B, C, T) in, audio (B, 1, T * HOPSIZE) out.
 """
 import numpy as np
@@ -14,6 +16,7 @@ from .. import load
 from ..ops import sparse
 from .fargan import FARGAN
 from .hifigan import HiFiGAN
+from .modules import Dense
 from .vocos import Vocos
 
 
@@ -37,12 +40,10 @@ class Generator(nn.Module):
     def __init__(self, config=None):
         super().__init__()
         config = config_module.default() if config is None else config
-        if config.ZERO_SHOT or config.SPECTROGRAM_ONLY \
-                or config.MODEL == 'cargan':
+        if config.SPECTROGRAM_ONLY or config.MODEL == 'cargan':
             raise NotImplementedError(
-                'Zero-shot speakers (ZERO_SHOT), the spectrogram-only '
-                "generator (SPECTROGRAM_ONLY) and MODEL='cargan' are not "
-                'ported')
+                "The spectrogram-only generator (SPECTROGRAM_ONLY) and "
+                "MODEL='cargan' are not ported")
         self.config = config
         self.dtype = (
             torch.bfloat16 if config.PRECISION == 'bfloat16'
@@ -81,8 +82,13 @@ class Generator(nn.Module):
                 num_previous=config.NUM_PREVIOUS_SAMPLES)
         else:
             raise ValueError(f'Generator model {config.MODEL} is not defined')
-        self.speaker_embedding = nn.Embedding(
-            config.NUM_SPEAKERS, config.SPEAKER_CHANNELS)
+        if config.ZERO_SHOT:
+            self.speaker_embedding = Dense(
+                config.WAVLM_EMBEDDING_CHANNELS, config.SPEAKER_CHANNELS,
+                bias=True)
+        else:
+            self.speaker_embedding = nn.Embedding(
+                config.NUM_SPEAKERS, config.SPEAKER_CHANNELS)
         if 'pitch' in config.INPUT_FEATURES and config.PITCH_EMBEDDING:
             self.pitch_embed = nn.Embedding(
                 config.PITCH_BINS, config.PITCH_EMBEDDING_SIZE)
@@ -105,7 +111,8 @@ class Generator(nn.Module):
             pitch: (B, T) pitch in Hz
             periodicity: (B, T)
             ppg: (B, PPG_CHANNELS, T)
-            speakers: (B,) int speaker ids
+            speakers: (B,) int speaker ids, or under ZERO_SHOT (B,
+                WAVLM_EMBEDDING_CHANNELS) float32 x-vectors
             spectral_balance_ratios: (B,)
             loudness_ratios: (B,)
             initial_states / return_states: FARGAN's carry, for streaming
@@ -132,8 +139,17 @@ class Generator(nn.Module):
     def prepare_global_features(
         self, speakers, spectral_balance_ratios, loudness_ratios
     ):
-        """Speaker embedding ⊕ augmentation ratios, (B, 1, G)"""
-        columns = [self.speaker_embedding(speakers).float()[:, None, :]]
+        """Speaker embedding ⊕ augmentation ratios, (B, 1, G)
+
+        The zero-shot Dense computes in the generator's dtype, as Flax's
+        `nn.Dense(dtype=...)` does: in bf16 the embedding is rounded to
+        bf16 before the ratios join it.
+        """
+        if self.config.ZERO_SHOT:
+            embedding = self.speaker_embedding(speakers.float(), self.dtype)
+        else:
+            embedding = self.speaker_embedding(speakers)
+        columns = [embedding.float()[:, None, :]]
         if self.config.AUGMENT_PITCH:
             columns.append(spectral_balance_ratios.float()[:, None, None])
         if self.config.AUGMENT_LOUDNESS:

@@ -27,11 +27,12 @@ class Conv1d(nn.Module):
 
     def __init__(
         self, in_channels, out_channels, kernel_size, stride=1, padding=0,
-        bias=True, groups=1
+        bias=True, groups=1, dilation=1
     ):
         super().__init__()
         self.stride = stride
         self.groups = groups
+        self.dilation = dilation
         self.padding = (
             (padding, padding) if isinstance(padding, int) else
             tuple(padding))
@@ -46,7 +47,7 @@ class Conv1d(nn.Module):
             x = F.pad(x, self.padding)
         y = F.conv1d(
             x, self.weight.to(dtype), stride=self.stride,
-            groups=self.groups).transpose(1, 2)
+            dilation=self.dilation, groups=self.groups).transpose(1, 2)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y

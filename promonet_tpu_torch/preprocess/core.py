@@ -4,9 +4,10 @@ For loudness, pitch, periodicity and PPG the audio is zero-padded to a
 bucketed frame count, every feature is computed on the padded audio, and
 the results are trimmed to the true frame count, as the JAX package's
 fused extractor does. The padding changes the features of the last
-frames, so the bucket ladder is part of the result. Harmonics are
-computed on the unpadded audio. The `from_file*` functions read wav files
-and save features under the JAX package's cache names (`save`).
+frames, so the bucket ladder is part of the result. Harmonics and the
+speaker embedding are computed on the unpadded audio. The `from_file*`
+functions read wav files and save features under the JAX package's
+cache names (`save`).
 """
 from pathlib import Path
 
@@ -21,13 +22,14 @@ from ..utils import audio as audio_module
 from . import harmonics as harmonics_module
 from . import loudness as loudness_module
 from . import pitch as pitch_module
+from . import speaker as speaker_module
 from . import spectrogram as spectrogram_module
 
 # Features computed on the bucket-padded audio
 PADDED = ('loudness', 'pitch', 'periodicity', 'ppg')
 
 # Every feature, in the order `from_audio` returns them
-FEATURES = PADDED + ('harmonics',)
+FEATURES = PADDED + ('harmonics', 'speaker')
 
 
 def from_audio(
@@ -39,7 +41,8 @@ def from_audio(
     loudness_bands='default',
     max_harmonics=None,
     config=None,
-    device='cuda'
+    device='cuda',
+    speaker_model=None
 ):
     """Preprocess audio (1, T) into interpretable features
 
@@ -56,11 +59,15 @@ def from_audio(
         max_harmonics: number of harmonic contours; None takes the config's
         config: a `config.Config`; None reads the environment's
         device: where to run; 'cuda' raises on a host without a card
+        speaker_model: `preprocess.speaker.SpeakerEncoder` with its
+            weights, for 'speaker'; None resolves as
+            `preprocess.speaker.from_audio` does
 
     Returns
         the requested features in the order loudness (bands or n_freq, T),
         pitch (1, T) in Hz, periodicity (1, T), ppg (PPG_CHANNELS, T),
-        harmonics (max_harmonics, T) in Hz, as float32 tensors on `device`
+        harmonics (max_harmonics, T) in Hz, speaker
+        (WAVLM_EMBEDDING_CHANNELS,), as float32 tensors on `device`
     """
     device = device_module.resolve(device)
     config = config_module.default() if config is None else config
@@ -87,6 +94,9 @@ def from_audio(
         out['harmonics'] = harmonics_module.from_audio(
             _to_numpy(audio), max_harmonics=max_harmonics, config=config,
             device=device)
+    if 'speaker' in features:
+        out['speaker'] = speaker_module.from_audio(
+            audio, speaker_model, config=config, device=device)
     return tuple(out[name] for name in FEATURES if name in features)
 
 
@@ -97,13 +107,15 @@ def from_file(
     features=PADDED,
     loudness_bands='default',
     config=None,
-    device='cuda'
+    device='cuda',
+    speaker_model=None
 ):
     """Preprocess a wav file; see `from_audio`"""
     config = config_module.default() if config is None else config
     return from_audio(
         load.audio(file, config), pitch_model, ppg_model, features=features,
-        loudness_bands=loudness_bands, config=config, device=device)
+        loudness_bands=loudness_bands, config=config, device=device,
+        speaker_model=speaker_model)
 
 
 def from_file_to_file(
@@ -114,7 +126,8 @@ def from_file_to_file(
     features=PADDED,
     loudness_bands='default',
     config=None,
-    device='cuda'
+    device='cuda',
+    speaker_model=None
 ):
     """Preprocess a wav file and save the features (see `save`)
 
@@ -125,7 +138,7 @@ def from_file_to_file(
         output_prefix = Path(file).with_suffix('')
     values = from_file(
         file, pitch_model, ppg_model, features, loudness_bands, config,
-        device)
+        device, speaker_model)
     save(output_prefix, dict(zip(_ordered(features), values)), config)
 
 
@@ -137,7 +150,8 @@ def from_files_to_files(
     features=PADDED,
     loudness_bands='default',
     config=None,
-    device='cuda'
+    device='cuda',
+    speaker_model=None
 ):
     """Preprocess several wav files and save their features, in turn"""
     if output_prefixes is None:
@@ -145,7 +159,7 @@ def from_files_to_files(
     for file, output_prefix in zip(files, output_prefixes):
         from_file_to_file(
             file, pitch_model, ppg_model, output_prefix, features,
-            loudness_bands, config, device)
+            loudness_bands, config, device, speaker_model)
 
 
 def save(output_prefix, feature_values, config=None):

@@ -6,10 +6,11 @@ pitch posteriors); decoding is peak picking or an iterative masked
 Viterbi over the whole frequency axis, whose large-state decode is
 `ops.viterbi.decode_logfreq` (a CUDA kernel on the card). Filtering,
 resampling and LPC run on the host in numpy and scipy, as in the JAX
-package; the STFT, the NCC and the decodes run on `device`.
+package; the STFT, the NCC and the decodes run on `device`. scipy.signal
+is imported where it is used: its import takes seconds, which every
+command-line entry point would otherwise wait for.
 """
 import numpy as np
-import scipy.signal
 import torch
 
 from .. import config as config_module
@@ -127,6 +128,8 @@ def from_files_to_files(files, output_files, pitch_files=None, config=None,
 
 def peak_pick(frames, frequencies, max_harmonics):
     """The lowest `max_harmonics` spectral peaks of each frame, on the host"""
+    import scipy.signal
+
     spectra = frames.cpu().numpy()
     harmonics = np.full((max_harmonics, len(spectra)), np.nan, np.float32)
     for i, frame in enumerate(spectra):
@@ -239,6 +242,8 @@ def lpc_coefficients(audio, sample_rate=None, config=None, device='cuda'):
     response at the analysis frequencies, cropped below FMIN. The result
     is placed on `device`; 'cuda' raises on a host without a card.
     """
+    import scipy.signal
+
     device = device_module.resolve(device)
     config = config_module.default() if config is None else config
     if sample_rate is None:
@@ -294,6 +299,8 @@ def pitch_posteriorgram(
 
 def highpass_biquad(audio, sample_rate, cutoff, q=0.707):
     """RBJ high-pass biquad on the host (scipy `lfilter`), float32"""
+    import scipy.signal
+
     w0 = 2 * np.pi * cutoff / sample_rate
     alpha = np.sin(w0) / (2 * q)
     cosw = np.cos(w0)

@@ -42,7 +42,9 @@ def from_features(
         periodicity: (1, T) periodicity contour
         ppg: (C, T) phonetic posteriorgram
         generator: `models.Generator` with its weights, on `device`
-        speaker: integer speaker id
+        speaker: integer speaker id, or under ZERO_SHOT a (512,) x-vector
+            (`preprocess.speaker.from_audio`); the other form raises
+            ValueError
         spectral_balance_ratio: (0, 2] spectral balance / formant ratio
         loudness_ratio: loudness ratio
         output_dtype: 'float32', or 'int16' for the PCM16 wire format
@@ -156,7 +158,8 @@ def from_features_batched(
             `from_features`; all must fall in one bucket
         generator: `models.Generator` with its weights, on `device`
         speakers / spectral_balance_ratios / loudness_ratios: one per set;
-            None gives 0 / 1. / 1.
+            None gives 0 / 1. / 1. Speakers are ids, or under ZERO_SHOT
+            (512,) x-vectors, as in `from_features`
 
     Returns
         audio: (len(feature_sets), 1, bucket * HOPSIZE) float32 tensor on
@@ -198,7 +201,8 @@ def from_features_batched(
                 torch.nan_to_num(stack(1).reshape(batch_size, -1), nan=100.),
                 stack(2).reshape(batch_size, -1),
                 stack(3),
-                per_row(speakers, torch.long),
+                speaker_tensor(
+                    [speakers[start + row] for row in rows], config, device),
                 per_row(spectral_balance_ratios, torch.float32),
                 per_row(loudness_ratios, torch.float32))
             outputs.append(audio[:len(group)])
@@ -331,7 +335,7 @@ def from_edited_audio(
             pitch,
             periodicity,
             ppg[None],
-            torch.tensor([speaker], dtype=torch.long, device=device),
+            speaker_tensor([speaker], config, device),
             torch.tensor([spectral_balance_ratio], device=device),
             torch.tensor([loudness_ratio], device=device))
     return _as_wire(
@@ -370,11 +374,55 @@ def generate(
             pad(pitch.reshape(-1), nan=100.),
             pad(periodicity.reshape(-1)),
             pad(ppg),
-            torch.tensor([speaker], dtype=torch.long, device=device),
+            speaker_tensor([speaker], config, device),
             torch.tensor([spectral_balance_ratio], device=device),
             torch.tensor([loudness_ratio], device=device))
     return _as_wire(
         audio[0, :, :frames * config.HOPSIZE], output_dtype).cpu().numpy()
+
+
+def speaker_tensor(speakers, config, device):
+    """The speakers of one generator call, as the generator takes them
+
+    Arguments
+        speakers: a list of integer ids or, under config.ZERO_SHOT, of
+            (WAVLM_EMBEDDING_CHANNELS,) x-vectors (numpy or tensors)
+
+    Returns
+        (B,) int64 ids or (B, WAVLM_EMBEDDING_CHANNELS) float32 x-vectors
+        on `device`; the form the configuration does not take raises
+        ValueError
+    """
+    if not config.ZERO_SHOT:
+        for speaker in speakers:
+            if not _is_id(speaker):
+                raise ValueError(
+                    'This generator takes integer speaker ids; x-vector '
+                    'speakers need a ZERO_SHOT configuration')
+        return torch.tensor(
+            [int(speaker) for speaker in speakers], dtype=torch.long,
+            device=device)
+    channels = config.WAVLM_EMBEDDING_CHANNELS
+    vectors = []
+    for speaker in speakers:
+        vector = torch.as_tensor(
+            speaker if isinstance(speaker, torch.Tensor)
+            else np.asarray(speaker, np.float32))
+        if tuple(vector.shape) != (channels,):
+            raise ValueError(
+                f'A ZERO_SHOT generator takes a ({channels},) x-vector per '
+                f'speaker, not {tuple(vector.shape)}')
+        vectors.append(vector.to(device, torch.float32))
+    return torch.stack(vectors)
+
+
+def _is_id(speaker):
+    """Whether `speaker` is one integer (Python, numpy or a 0-d tensor)"""
+    if isinstance(speaker, torch.Tensor):
+        return speaker.dim() == 0 and not speaker.is_floating_point() \
+            and speaker.dtype != torch.bool
+    return np.ndim(speaker) == 0 and np.issubdtype(
+        np.asarray(speaker).dtype, np.integer)
 
 
 def _as_wire(audio, output_dtype):

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import device as device_module
+from .core import speaker_tensor
 
 
 class Streamer:
@@ -41,7 +42,8 @@ class Streamer:
         Arguments
             generator: `models.Generator` with its weights, on `device`
             speaker, spectral_balance_ratio, loudness_ratio: as in
-                `synthesize.from_features`
+                `synthesize.from_features` (an id, or under ZERO_SHOT a
+                (512,) x-vector)
             chunk_frames: frames emitted per step
             left_frames, right_frames: context frames on either side
             device: where to run; 'cuda' raises on a host without a card
@@ -55,7 +57,8 @@ class Streamer:
         self.right = right_frames
         self.window = left_frames + chunk_frames + right_frames
         self.conditions = _conditions(
-            speaker, spectral_balance_ratio, loudness_ratio, self.device)
+            speaker, spectral_balance_ratio, loudness_ratio,
+            generator.config, self.device)
 
         # Feature frames not yet emitted; left context of the next window
         self._pending = None
@@ -171,7 +174,8 @@ class FARGANStreamer:
         self.sample_rate = generator.config.SAMPLE_RATE
         self.chunk = chunk_frames
         self.conditions = _conditions(
-            speaker, spectral_balance_ratio, loudness_ratio, self.device)
+            speaker, spectral_balance_ratio, loudness_ratio,
+            generator.config, self.device)
         self._pending = None
         self._carry = generator.backbone.initial_states(
             1, generator.dtype, self.device)
@@ -225,10 +229,12 @@ class FARGANStreamer:
         return audio[0].cpu().numpy(), carry
 
 
-def _conditions(speaker, spectral_balance_ratio, loudness_ratio, device):
+def _conditions(
+    speaker, spectral_balance_ratio, loudness_ratio, config, device
+):
     """Speaker and ratio tensors of a single-row generator call"""
     return (
-        torch.tensor([speaker], dtype=torch.long, device=device),
+        speaker_tensor([speaker], config, device),
         torch.tensor([spectral_balance_ratio], device=device),
         torch.tensor([loudness_ratio], device=device))
 

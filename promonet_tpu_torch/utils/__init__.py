@@ -1,1 +1,1 @@
-from . import audio
+from . import audio, checkpoint

@@ -2,12 +2,13 @@
 `promonet_tpu/utils/audio.py`)
 
 Host-side scipy, as in the JAX package, so both give the same samples.
-Audio is float32 numpy in the (channels, time) layout.
+Audio is float32 numpy in the (channels, time) layout. scipy.signal is
+imported where it is used: its import takes seconds, which every
+command-line entry point would otherwise wait for.
 """
 import wave
 
 import numpy as np
-import scipy.signal
 from scipy.io import wavfile
 
 
@@ -61,6 +62,8 @@ def resample(audio, sample_rate, target_sample_rate):
     Rate pairs whose reduced ratio exceeds 512 would need polyphase
     filters of 10^5 and more taps; those go through FFT resampling.
     """
+    import scipy.signal
+
     if sample_rate == target_sample_rate:
         return audio
     gcd = np.gcd(int(sample_rate), int(target_sample_rate))

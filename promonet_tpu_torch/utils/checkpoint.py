@@ -1,0 +1,80 @@
+"""The port's checkpoints (counterpart of `promonet_tpu/utils/checkpoint.py`)
+
+A checkpoint is one file, `<prefix>-<step:08d>.pt`, that `torch.save`
+writes: {'params': state dict, 'step': int, 'epoch': int} and any extra
+scalars of the JAX checkpoint it came from (the pitch CNN's calibrated
+'voicing_threshold'). It holds tensors and numbers only, so it is read
+with `torch.load(weights_only=True)`, and no JAX or orbax is needed.
+"""
+import os
+import pickle
+import re
+from pathlib import Path
+
+import torch
+
+
+def save(path, params, step=0, epoch=0, **extra):
+    """Write a checkpoint file; the write is atomic
+
+    Arguments
+        path: the file to write
+        params: a state dict; its tensors are saved from the CPU
+        step, epoch: training counters
+        extra: further ints or floats to keep beside them
+    """
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {
+        'params': {
+            name: value.detach().cpu() for name, value in params.items()},
+        'step': int(step),
+        'epoch': int(epoch),
+        **extra}
+    partial = path.with_name(f'{path.name}.{os.getpid()}.tmp')
+    torch.save(payload, partial)
+    os.replace(partial, path)
+
+
+def load(path, map_location=None):
+    """The payload of a checkpoint file, tensors on `map_location`
+
+    None leaves the tensors where they were saved from (the CPU).
+    """
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def readable(path):
+    """True if the file parses as a checkpoint (its write completed)
+
+    The tensors' data is mapped, not read.
+    """
+    try:
+        payload = torch.load(
+            path, map_location='cpu', weights_only=True, mmap=True)
+    except (OSError, RuntimeError, EOFError, pickle.UnpicklingError):
+        return False
+    return isinstance(payload, dict) and 'params' in payload
+
+
+def latest_path(directory, prefix='generator-*'):
+    """The newest readable `<prefix>.pt` in `directory`, or None
+
+    `*` in `prefix` stands for the step. A newest file that does not
+    parse (a write cut short) is skipped for the newest one that does, as
+    the JAX package's `latest_path` does.
+    """
+    directory = Path(directory)
+    if not directory.is_dir():
+        return None
+    pattern = re.compile(
+        '^' + re.escape(prefix).replace(r'\*', r'(\d+)') + r'\.pt$')
+    candidates = []
+    for entry in directory.iterdir():
+        match = pattern.match(entry.name)
+        if match:
+            candidates.append((int(match.group(1)), entry))
+    for _, entry in sorted(candidates, reverse=True):
+        if readable(entry):
+            return entry
+    return None

@@ -1,0 +1,148 @@
+"""The port with the repository's trained weights on one NVIDIA GPU.
+
+Reads the converted checkpoints (`scripts/convert_checkpoints.py`, which
+needs JAX, writes them to `checkpoints_torch/`) and runs, on 10 s of the
+smoke's harmonic audio (4 harmonics of a vibrato around 180 Hz):
+
+- the shipped pitch CNN and PPG encoder through `preprocess.from_audio`:
+  the pitch error in cents against the signal's true fundamental, and
+  the same for the 'dsp' estimator beside it;
+- the edit chain, preprocess → edit (+400 cents, stretch 1/1.4, +3 dB) →
+  synthesize, with the release generator under its training
+  configuration (`synthetic.py`, 24 speakers), timed on its second call,
+  and the pitch of the synthesized audio against the edited contour;
+- the shipped speaker encoder: the x-vector of the audio, and the cosine
+  between the x-vectors of two signals an octave apart.
+
+    python scripts/trained_weights.py [--checkpoints checkpoints_torch]
+
+Prints one JSON line per measurement, the card's name and power limit
+last. Needs a CUDA device; with none it exits 1 and runs nothing.
+"""
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import promonet_tpu_torch as port  # noqa: E402
+
+EDIT = dict(
+    pitch_shift_cents=400., time_stretch_ratio=1 / 1.4, loudness_scale_db=3.)
+
+
+def harmonic_audio(seconds, sample_rate, base=180.):
+    """4 harmonics of a vibrato around `base` Hz, and its fundamental at
+    the frame centres"""
+    t = np.arange(int(seconds * sample_rate)) / sample_rate
+    pitch = base + base / 3 * np.sin(2 * np.pi * 1.5 * t)
+    phase = 2 * np.pi * np.cumsum(pitch) / sample_rate
+    audio = sum((0.5 ** k) * np.sin(k * phase) for k in range(1, 5))
+    return (0.5 * audio / np.abs(audio).max()).astype(np.float32)[None]
+
+
+def track(seconds, sample_rate, hopsize, base=180.):
+    frames = int(seconds * sample_rate) // hopsize
+    centers = (np.arange(frames) + 0.5) * hopsize / sample_rate
+    return base + base / 3 * np.sin(2 * np.pi * 1.5 * centers)
+
+
+def cents(estimate, truth):
+    """Median and 90th percentile of |1200 log2(estimate / truth)|"""
+    error = 1200 * np.abs(np.log2(np.asarray(estimate).ravel() / truth))
+    return float(np.median(error)), float(np.percentile(error, 90))
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        '--checkpoints', type=Path, default=ROOT / 'checkpoints_torch',
+        help='Directory of the converted checkpoints')
+    checkpoints = parser.parse_args().checkpoints
+    if not torch.cuda.is_available():
+        print('trained_weights: no CUDA device', file=sys.stderr)
+        return 1
+    device = torch.device('cuda')
+    config = port.config.load(checkpoints / 'synthetic.py').replace(
+        CHECKPOINTS_DIR=checkpoints, PITCH_ESTIMATOR='cnn')
+    sample_rate, hopsize = config.SAMPLE_RATE, config.HOPSIZE
+    pitch_model = port.load.pitch_model(config=config, device=device)
+    ppg_model = port.load.ppg_model(config=config, device=device)
+    encoder = port.load.speaker_encoder(config=config, device=device)
+    generator = port.load.generator(
+        checkpoints / 'generator-00155000.pt', config, device)
+    audio = harmonic_audio(10., sample_rate)
+    truth = track(10., sample_rate, hopsize)
+
+    # Pitch of the shipped CNN, and of the 'dsp' estimator
+    for estimator in ('cnn', 'dsp'):
+        features = port.preprocess.from_audio(
+            audio, pitch_model, ppg_model, loudness_bands=None,
+            config=config.replace(PITCH_ESTIMATOR=estimator), device=device)
+        median, p90 = cents(features[1].cpu().numpy(), truth)
+        print(json.dumps(dict(
+            measure='pitch', estimator=estimator, frames=len(truth),
+            median_cents=median, p90_cents=p90,
+            voicing_threshold=pitch_model.voicing_threshold)), flush=True)
+
+    # The edit chain with the release generator, second call timed
+    def chain():
+        features = port.preprocess.from_audio(
+            audio, pitch_model, ppg_model, loudness_bands=None,
+            config=config, device=device)
+        edited = port.edit.from_features(*features, config=config, **EDIT)
+        output = port.synthesize.from_features(
+            *edited, generator=generator, speaker=3, device=device)
+        return edited, output
+
+    for call in (1, 2):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        edited, output = chain()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    # The synthesized audio's pitch (same CNN) against the edited contour
+    again = port.preprocess.from_audio(
+        output, pitch_model, ppg_model, loudness_bands=None, config=config,
+        device=device)
+    frames = min(again[1].shape[-1], edited[1].shape[-1])
+    median, p90 = cents(again[1][..., :frames].cpu().numpy(),
+                        edited[1][..., :frames].cpu().numpy().ravel())
+    print(json.dumps(dict(
+        measure='edit_chain', ms=seconds * 1e3,
+        realtime_factor=10. / seconds, samples=output.shape[-1],
+        finite=bool(np.isfinite(output).all()),
+        resynthesis_pitch_median_cents=median,
+        resynthesis_pitch_p90_cents=p90)), flush=True)
+
+    # The shipped speaker encoder
+    start = time.perf_counter()
+    xvector = port.preprocess.speaker.from_audio(
+        audio, encoder, config=config, device=device)
+    torch.cuda.synchronize()
+    embed_ms = (time.perf_counter() - start) * 1e3
+    lower = port.preprocess.speaker.from_audio(
+        harmonic_audio(10., sample_rate, base=90.), encoder, config=config,
+        device=device)
+    print(json.dumps(dict(
+        measure='speaker', ms_first_call=embed_ms,
+        norm=float(torch.linalg.vector_norm(xvector)),
+        cosine_octave_apart=float(torch.dot(xvector, lower)))), flush=True)
+
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0] if smi else 'nvidia-smi: no output', flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels held against their plain PyTorch versions.
+"""The port's CUDA kernels held against their plain PyTorch versions, and
+on the paths that call them: zero-shot batches (K1 at B = 8 with x-vector
+speakers) and the three CLIs as processes of their own.
 
 These need an NVIDIA GPU and `nvcc`; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it also runs where only
@@ -482,3 +484,144 @@ def test_resblock_kernel_rejects_what_it_does_not_take(device):
         resblock.fused_block(
             x, resblock.pack_weights(weights.cpu(), biases.cpu()), None,
             DILATIONS, 0.1)
+
+
+###############################################################################
+# Zero-shot synthesis and the command-line entry points on the card
+###############################################################################
+
+
+def _zero_shot_inputs(frames, count, seed):
+    """`count` feature sets of `frames` frames and unit x-vectors, numpy"""
+    rng = np.random.default_rng(seed)
+    sets = []
+    for _ in range(count):
+        logits = 2 * rng.standard_normal((40, frames))
+        sets.append((
+            rng.uniform(-80, 10, (513, frames)).astype(np.float32),
+            (160 + 40 * np.sin(np.arange(frames) / 7.))[None].astype(
+                np.float32),
+            rng.uniform(0, 1, (1, frames)).astype(np.float32),
+            (np.exp(logits) / np.exp(logits).sum(0)).astype(np.float32)))
+    vectors = rng.standard_normal((count, 512))
+    vectors /= np.linalg.norm(vectors, axis=1, keepdims=True)
+    return sets, list(vectors.astype(np.float32))
+
+
+@pytest.mark.parametrize('frames', [896, 1280])
+def test_resblock_kernel_serves_zero_shot_batches(device, frames):
+    """Eight x-vector speakers in one call at full width (bf16): twelve
+    Block calls at B = 8, each row within K1's bound of its single call"""
+    from pathlib import Path
+
+    import promonet_tpu_torch as port
+    config = port.config.load(
+        Path(__file__).resolve().parent.parent / 'configs' /
+        'promonet-zeroshot.py')
+    generator = port.models.init.seeded(
+        port.models.Generator(config), 6).to(device).eval()
+    sets, xvectors = _zero_shot_inputs(frames, 8, frames)
+    launches = resblock.fused_block.launches
+    batched = port.synthesize.from_features_batched(
+        sets, generator, speakers=xvectors, device=device)
+    torch.cuda.synchronize()
+    assert resblock.fused_block.launches == launches + 12
+    assert tuple(batched.shape) == (8, 1, frames * 256)
+    for row, values, vector in zip(batched, sets, xvectors):
+        single = torch.from_numpy(port.synthesize.from_features(
+            *values, generator=generator, speaker=vector,
+            device=device)).to(device)
+        assert _within_bound(row, single)
+
+
+def test_clis_on_the_card_write_what_the_calls_write(device, tmp_path,
+                                                     monkeypatch):
+    """preprocess → edit → synthesize as `python -m` processes on the
+    default CUDA device, against `from_files_to_files` in this process:
+    decoded pitch, periodicity and harmonics equal, the rest within 1e-5
+    of its scale, the audio within K1's bound. Both sides run PyTorch's
+    default TF32 settings (cuDNN on, cuBLAS off), as a CLI process does."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import promonet_tpu_torch as port
+
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    root = Path(__file__).resolve().parent.parent
+    checkpoint = port.utils.checkpoint
+    weights = tmp_path / 'weights'
+    for name, model, seed in (
+        ('pitch', port.preprocess.PitchCNN(), 1),
+        ('ppg', port.preprocess.PPGEncoder(), 2),
+    ):
+        checkpoint.save(weights / f'{name}-00000001.pt',
+                        port.models.init.seeded(model, seed).state_dict())
+    config_file = tmp_path / 'cli.py'
+    config_file.write_text(
+        f"MODULE = 'promonet_tpu_torch'\nCHECKPOINTS_DIR = {str(weights)!r}\n")
+    config = port.config.load(config_file)
+    generator_file = weights / 'generator-00000001.pt'
+    checkpoint.save(generator_file, port.models.init.seeded(
+        port.models.Generator(config), 3).state_dict())
+    t = np.arange(22050) / 22050
+    phase = 2 * np.pi * np.cumsum(180. + 60. * np.sin(2 * np.pi * t)) / 22050
+    wav = tmp_path / 'speech.wav'
+    port.utils.audio.save(wav, 0.4 * np.sin(phase)[None], 22050)
+    cli, ours = tmp_path / 'cli', tmp_path / 'ours'
+    cli.mkdir()
+    ours.mkdir()
+
+    def files(folder, prefix):
+        return [folder / f'{prefix}-{name}.npy' for name in (
+            'loudness', 'viterbi-pitch', 'viterbi-periodicity', 'ppg')]
+
+    def run(stage, *arguments):
+        result = subprocess.run(
+            [sys.executable, '-m', f'promonet_tpu_torch.{stage}',
+             *map(str, arguments), '--config', str(config_file)],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        assert result.returncode == 0, result.stderr
+
+    def flags(folder, prefix):
+        return [value for name, file in zip(
+            ('loudness', 'pitch', 'periodicity', 'ppg'),
+            files(folder, prefix)) for value in (f'--{name}_files', file)]
+
+    features = ('loudness', 'pitch', 'periodicity', 'ppg', 'harmonics')
+    run('preprocess', '--files', wav, '--output_prefixes', cli / 'speech',
+        '--features', *features)
+    run('edit', *flags(cli, 'speech'), '--output_prefixes', cli / 'edited',
+        '--pitch_shift_cents', 400., '--time_stretch_ratio', 0.7,
+        '--loudness_scale_db', 3.)
+    run('synthesize', *flags(cli, 'edited'), '--output_files',
+        cli / 'edited.wav', '--speakers', 3, '--checkpoint', generator_file)
+
+    port.preprocess.from_files_to_files(
+        [wav], port.load.pitch_model(config=config, device=device),
+        port.load.ppg_model(config=config, device=device),
+        [ours / 'speech'], features, config=config, device=device)
+    port.edit.from_files_to_files(
+        *([file] for file in files(cli, 'speech')), [ours / 'edited'],
+        pitch_shift_cents=400., time_stretch_ratio=0.7, loudness_scale_db=3.,
+        config=config, device=device)
+    port.synthesize.from_files_to_files(
+        *([file] for file in files(cli, 'edited')), [ours / 'edited.wav'],
+        port.load.generator(generator_file, config, device), speakers=[3],
+        device=device)
+    names = sorted(path.name for path in cli.iterdir())
+    assert names == sorted(path.name for path in ours.iterdir())
+    for name in names:
+        if not name.endswith('.npy'):
+            continue
+        a, b = np.load(cli / name), np.load(ours / name)
+        if name.startswith('speech') and any(
+                part in name for part in ('pitch', 'periodicity', 'harmonics')):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert np.abs(a - b).max() <= 1e-5 * max(1., np.abs(b).max())
+    audio = [torch.from_numpy(port.utils.audio.load(folder / 'edited.wav')[0])
+             for folder in (cli, ours)]
+    assert audio[0].shape == (1, round(86 / 0.7) * 256)
+    assert _within_bound(*audio)

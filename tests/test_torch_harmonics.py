@@ -515,6 +515,6 @@ def test_preprocess_from_audio_orders_harmonics_last():
         audio, None, None, features=('harmonics',), max_harmonics=2,
         config=config, device='cpu')
     np.testing.assert_array_equal(only.numpy(), theirs[1][:2])
-    with pytest.raises(NotImplementedError, match='speaker'):
+    with pytest.raises(NotImplementedError, match='spectrogram'):
         port.preprocess.from_audio(
-            audio, None, None, features=('speaker',), device='cpu')
+            audio, None, None, features=('spectrogram',), device='cpu')

@@ -461,6 +461,10 @@ def test_port_imports_no_jax():
         '[importlib.import_module(name) for name in names]; '
         'assert "promonet_tpu_torch.synthesize.stream" in names; '
         'assert "promonet_tpu_torch.models.fargan" in names; '
+        'assert {"promonet_tpu_torch." + name for name in ('
+        '"preprocess.__main__", "edit.__main__", "synthesize.__main__", '
+        '"preprocess.speaker", "utils.checkpoint", "utils.cli")} <= '
+        'set(names); '
         'bad = [m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "flax", "orbax", "promonet_tpu")]; '
         'print(bad); sys.exit(1 if bad else 0)')

@@ -358,14 +358,16 @@ def test_bridge_uses_every_leaf_of_the_backbone(monkeypatch, model, overrides):
 
 def test_generator_refuses_what_is_not_ported():
     config = port.config.load()
-    for overrides in (dict(ZERO_SHOT=True), dict(SPECTROGRAM_ONLY=True),
-                      dict(MODEL='cargan')):
+    for overrides in (dict(SPECTROGRAM_ONLY=True), dict(MODEL='cargan')):
         with pytest.raises(
-                NotImplementedError,
-                match='ZERO_SHOT.*SPECTROGRAM_ONLY.*cargan'):
+                NotImplementedError, match='SPECTROGRAM_ONLY.*cargan'):
             port.models.Generator(config.replace(**overrides))
     with pytest.raises(ValueError, match='world'):
         port.models.Generator(config.replace(MODEL='world'))
+    # Zero-shot speakers are ported: a Dense over x-vectors
+    generator = port.models.Generator(config.replace(
+        ZERO_SHOT=True, HIFIGAN_UPSAMPLE_INITIAL_SIZE=16))
+    assert isinstance(generator.speaker_embedding, Dense)
 
 
 @pytest.mark.parametrize('model,expected', [
