@@ -104,7 +104,36 @@ Phases, each printed as one JSON line with the seconds since the start
    harmonics equal, the other features within 1e-5 of their scale, the
    audio within the bf16 bound. Each CLI's wall time includes its
    process start and the kernel load from build/kernels/.
-14. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
+14. evaluation path, full width (HiFi-GAN 512, bf16, the seeded weights
+   of phase 4 written as port checkpoints under build/, the PPG one
+   making a transcriber available): data.synthetic.create (4 speakers x
+   3 utterances x 2 s, the default configuration) on the card, one
+   Viterbi decode per wav and a spectrogram file per stem; then
+   evaluate.datasets over its 4 test stems x 11 conditions (44 jobs),
+   with each phase's launches and HiFi-GAN calls counted: 44 Viterbi
+   decodes in the re-preprocess and 12 residual-block calls per
+   generator call; results.json with all 11 conditions and finite
+   loudness, periodicity and PPG, every job's wav and .npy files, each
+   phase's seconds and RTF, and the card's idle share over one profiled
+   re-preprocess. The card's metrics are recomputed on the CPU from the
+   exported files (within 1e-6 relative) and one job's edit on the card
+   is held to the CPU's with phase 5's tolerances. One job's audio,
+   zero-padded to the run's top bucket, is preprocessed again on the
+   card and through the plain CPU path in float32 (loudness within 0.05
+   dB, PPG within 1e-3, pitch and periodicity reported as phase 5 does),
+   and K2 decodes the card's and the CPU's pitch observations of it and
+   a random one at that length, paths equal exactly to the plain scan's
+   on the card and on the CPU. Then the mels baseline
+   (configs/baselines/mels.py, seeded MelGenerator) over the same
+   corpus: only 'reconstructed' runs, one generator call (12
+   residual-block calls) per stem, and its audio within 5% relative RMS
+   of the plain CPU path in float32. K1 is then held to the bf16 bound,
+   with the zeroed-bias control above batch one, at every (batch,
+   frames) that the two evaluations' HiFi-GAN calls were given (the
+   bucket groups at batch 8, the mels stems at batch 1). Last `python -m
+   promonet_tpu_torch.evaluate --gpu 0 --max_stems 1` in a process of
+   its own must write results.json with the same conditions.
+15. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
    launches per Block, the time at each number of row tiles per thread
    block, the plain chain's and cuDNN's times and the bound; K2 with the
    forward pass and the backtrace timed apart, microseconds per frame
@@ -293,6 +322,86 @@ def block_bound_ms(batch, frames, channels, kernel_size):
                   6 * kernel_size * channels * channels + 6 * channels)
     return max(flops / PEAK_BF16, moved / PEAK_BYTES) * 1e3, \
         'operations' if flops / PEAK_BF16 > moved / PEAK_BYTES else 'bytes'
+
+
+def stage_shapes(config, frames):
+    """(samples, channels) of each HiFi-GAN upsampling stage's Blocks for
+    `frames` input frames"""
+    shapes, channels = [], config.HIFIGAN_UPSAMPLE_INITIAL_SIZE
+    for rate in config.HIFIGAN_UPSAMPLE_RATES:
+        channels, frames = channels // 2, frames * rate
+        shapes.append((frames, channels))
+    return shapes
+
+
+def check_blocks(torch, rng, resblock, device, checks, phase='check'):
+    """K1 against its plain version at each (frames, channels, kernel
+    sizes, (batch, length) pairs) of `checks`, within the bf16 bound; at
+    every batch above one the bound must fail once a single bias is
+    zeroed. Returns the largest error at batch 1 (0 without one)"""
+    error_at_one = 0.
+    for frames, channels, kernel_sizes, sizes in checks:
+        for kernel_size in kernel_sizes:
+            for batch, length in sizes:
+                x, weights, biases = block_problem(
+                    torch, rng, batch, length, channels, kernel_size, device)
+                plain = resblock.reference_block(
+                    x, weights, biases, DILATIONS, 0.1, torch.bfloat16
+                ).float()
+                kernel = resblock.fused_block(
+                    x, weights, biases, DILATIONS, 0.1).float()
+                torch.cuda.synchronize()
+                error = (kernel - plain).abs()
+                within = within_bf16_bound(torch, kernel, plain)
+                record = dict(
+                    phase=phase, kernel='resblock', batch=batch,
+                    frames=length, channels=channels,
+                    kernel_size=kernel_size,
+                    max_abs_err=float(error.max()), within_bound=within)
+                if batch > 1:
+                    broken = biases.clone()
+                    broken[5, torch.argmax(broken[5].abs())] = 0.
+                    wrong = resblock.fused_block(
+                        x, weights, broken, DILATIONS, 0.1).float()
+                    record['zeroed_bias_caught'] = not within_bf16_bound(
+                        torch, wrong, plain)
+                    within = within and record['zeroed_bias_caught']
+                emit(**record)
+                if not within:
+                    raise AssertionError('resblock kernel disagrees')
+                if batch == 1:
+                    error_at_one = max(error_at_one, record['max_abs_err'])
+    return error_at_one
+
+
+def check_decodes(viterbi, device, checks, initial, phase='check'):
+    """K2 against the plain scan, on the card and on the CPU, at each
+    (label, observation, transition) of `checks`: paths equal exactly.
+    Returns the largest difference in state index (0)"""
+    largest = 0
+    for label, observation, matrix in checks:
+        batch = observation if observation.dim() == 3 else observation[None]
+        plain = np.stack([viterbi.decode(
+            sequence.cpu(), matrix.cpu(), initial.cpu()).numpy()
+            for sequence in batch])
+        on_card_plain = np.stack([
+            viterbi.backtrace_plain(*viterbi.forward_plain(
+                sequence.to(device), matrix, initial)).cpu().numpy()
+            for sequence in batch])
+        kernel = viterbi.decode(
+            observation.to(device), matrix, initial).cpu().numpy()
+        kernel = kernel.reshape(plain.shape)
+        equal = bool(np.array_equal(kernel, plain) and
+                     np.array_equal(kernel, on_card_plain))
+        emit(phase=phase, kernel='viterbi', observation=label,
+             frames=observation.shape[-2], equal=equal,
+             mismatches=int((kernel != plain).sum()))
+        largest = max(
+            largest, int(np.abs(kernel - plain).max()),
+            int(np.abs(kernel - on_card_plain).max()))
+        if not equal:
+            raise AssertionError('viterbi kernel disagrees')
+    return largest
 
 
 def launch_counts(resblock, viterbi):
@@ -908,6 +1017,417 @@ def cli_path(torch, port, device, audio, config, pitch_model, ppg_model,
     return launches
 
 
+# Phase 14: the evaluation's corpus, its kernels' launches per phase and
+# the generator calls, counted by the hooks below
+CLI_EVALUATE_TIMEOUT = 300
+
+
+def counted_phases(torch, port):
+    """Launch counts and generator calls per evaluation phase: wraps
+    `utils.timer.Timer.phase` and hooks every HiFi-GAN forward; returns
+    (per-phase counts, the (batch, frames) of every HiFi-GAN input,
+    restore)"""
+    import contextlib
+    from promonet_tpu_torch.ops import resblock, viterbi
+    phases, calls, inputs_seen = {}, [0], set()
+    original = port.utils.timer.Timer.phase
+
+    def state():
+        return {'resblock': resblock.fused_block.launches,
+                'viterbi': viterbi.decode.launches,
+                'viterbi_logfreq': viterbi.decode_logfreq.launches,
+                'generator_calls': calls[0]}
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        before = state()
+        with original(self, name):
+            yield
+        counts = phases.setdefault(name, dict.fromkeys(before, 0))
+        for key, value in state().items():
+            counts[key] += value - before[key]
+
+    def hook(module, inputs, output):
+        if isinstance(module, port.models.HiFiGAN):
+            calls[0] += 1
+            inputs_seen.add(tuple(inputs[0].shape[:2]))
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    port.utils.timer.Timer.phase = phase
+
+    def restore():
+        handle.remove()
+        port.utils.timer.Timer.phase = original
+
+    return phases, inputs_seen, restore
+
+
+def evaluation_path(torch, port, device, config, pitch_model, ppg_model,
+                    generator):
+    """Phase 14: the formant corpus made and preprocessed on the card, the
+    objective evaluation over it (11 conditions), its metrics and one
+    job's edit held against the plain CPU path, the mels baseline's
+    evaluation, K1 and K2 against their plain versions at the shapes
+    these evaluations gave them, and the evaluate CLI in a process of its
+    own; returns the launch counts of each part and the largest K1 error
+    at batch 1 and K2 state difference of these checks"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    evaluate_core = port.evaluate.core
+    hopsize = config.HOPSIZE
+    (ROOT / 'build').mkdir(exist_ok=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as directory:
+        directory = Path(directory)
+        checkpoints = directory / 'checkpoints'
+        checkpoint = port.utils.checkpoint
+        checkpoint.save(checkpoints / 'pitch-00000001.pt',
+                        pitch_model.state_dict(), step=1)
+        # A PPG checkpoint makes a transcriber available
+        checkpoint.save(checkpoints / 'ppg-00000002.pt',
+                        ppg_model.state_dict(), step=2)
+        generator_file = checkpoints / 'generator-00000003.pt'
+        checkpoint.save(generator_file, generator.state_dict(), step=3)
+        dirs = dict(
+            CACHE_DIR=directory / 'cache',
+            PARTITIONS_DIR=directory / 'partitions',
+            RESULTS_DIR=directory / 'results', EVAL_DIR=directory / 'eval',
+            CHECKPOINTS_DIR=checkpoints, RUNS_DIR=directory / 'runs')
+        eval_config = config.replace(**dirs)
+        ratios = len(eval_config.EVALUATION_RATIOS)
+        conditions = 1 + 5 * ratios
+
+        # The corpus: 4 speakers x 3 utterances x 2 s, preprocessed on the
+        # card with the seeded extractors, one K2 decode per wav
+        reset_launch_counts(resblock, viterbi)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        cache = port.data.synthetic.create(
+            'synthetic', speakers=4, utterances=3, seconds=2.0,
+            config=eval_config, device=device)
+        torch.cuda.synchronize()
+        corpus_seconds = time.perf_counter() - start
+        launches['corpus'] = launch_counts(resblock, viterbi)
+        wavs = sorted(cache.glob('*/*.wav'))
+        spectrograms = [
+            wav.parent / f'{wav.stem}-spectrogram.npy' for wav in wavs]
+        record = dict(
+            phase='evaluation_corpus', seconds=corpus_seconds,
+            utterances=len(wavs), launches=launches['corpus'],
+            spectrograms=sum(file.exists() for file in spectrograms))
+        emit(**record)
+        if launches['corpus'] != {'resblock': 0, 'viterbi': len(wavs),
+                                  'viterbi_logfreq': 0} or \
+                len(wavs) != 12 or record['spectrograms'] != len(wavs):
+            raise AssertionError('the evaluation corpus is wrong')
+
+        # The evaluation, each phase's launches and generator calls counted
+        test_stems = port.load.partition(
+            'synthetic', False, eval_config)['test']
+        jobs = len(test_stems) * conditions
+        phases, generator_inputs, restore = counted_phases(
+            torch, port)
+        try:
+            start = time.perf_counter()
+            results = port.evaluate.datasets(
+                ['synthetic'], checkpoint=generator_file, config=eval_config,
+                device=device)['synthetic']
+            seconds = time.perf_counter() - start
+        finally:
+            restore()
+        launches['evaluate'] = phases
+        objective = results['objective']
+        generator_calls = sum(
+            counts['generator_calls'] for counts in phases.values())
+        # The output buckets of the jobs: a group each, per speaker
+        ladder = evaluate_core._coarse_bucket_ladder(
+            'synthetic', {'': test_stems}, eval_config)
+        exported = directory / 'eval' / 'objective'
+        buckets = {}
+        for file in exported.glob('*/*-pitch.npy'):
+            speaker_id = file.name.split('-')[1]
+            frames = np.load(file).shape[-1]
+            buckets.setdefault(speaker_id, set()).add(
+                port.data.bucket_frames(frames, ladder))
+        finite = all(
+            np.isfinite(values[name]).all() for values in objective.values()
+            for name in ('periodicity', 'ppg')) and all(
+            np.isfinite(value) for values in objective.values()
+            for value in values['loudness'].values())
+        wav_count = len(list((directory / 'eval' / 'subjective').glob(
+            '*/*.wav')))
+        npy_count = len(list(exported.glob('*/*.npy')))
+        record = dict(
+            phase='evaluation', seconds=seconds, jobs=jobs,
+            ladder=ladder, bucket_groups=sum(map(len, buckets.values())),
+            generator_calls=generator_calls, launches=phases,
+            benchmark=results['benchmark'],
+            audio_seconds=results['num_samples'] / config.SAMPLE_RATE,
+            conditions=sorted(objective), finite=finite,
+            objective_reconstructed=objective['reconstructed'],
+            wavs=wav_count, npys=npy_count)
+        emit(**record)
+        if len(objective) != conditions or not finite or \
+                set(results['benchmark']) != {
+                    'load', 'warmup', 'edit', 'generate', 'preprocess',
+                    'transcribe'} or \
+                wav_count != jobs + len(test_stems) or npy_count != 4 * jobs:
+            raise AssertionError('the evaluation results are wrong')
+        if phases['preprocess']['viterbi'] != jobs or any(
+                counts['resblock'] != 12 * counts['generator_calls']
+                for counts in phases.values()):
+            raise AssertionError(f'the evaluation launched {phases}')
+
+        # The card's idle share over one job's re-preprocess at the run's
+        # top bucket
+        wav = next((directory / 'eval' / 'subjective' / 'reconstructed'
+                    ).glob('*.wav'))
+        audio = port.load.audio(wav, config)
+        padded = np.zeros((1, max(ladder) * hopsize), np.float32)
+        padded[:, :audio.shape[-1]] = audio
+        run_config = eval_config.replace(INFERENCE_FRAME_BUCKETS=ladder)
+        models = evaluate_core._models(generator_file, run_config, device)
+
+        def preprocess_job():
+            return port.preprocess.from_audio(
+                padded, models[0], models[1],
+                features=evaluate_core.PREDICTED, loudness_bands=None,
+                config=run_config, device=device)
+
+        card_features = [value.cpu() for value in preprocess_job()]
+        profiled = device_busy(torch, preprocess_job)
+
+        # The same re-preprocess through the plain CPU path in float32,
+        # held as phase 5 holds it; then K2 at the top bucket's length on
+        # the card's and the CPU's pitch observations of it and on a
+        # random one, paths equal exactly to the plain scan's
+        cpu_models = (port.preprocess.PitchCNN(), port.preprocess.PPGEncoder())
+        for copy, model in zip(cpu_models, models[:2]):
+            copy.load_state_dict(
+                {k: v.cpu() for k, v in model.state_dict().items()})
+            copy.eval()
+        cpu_features = port.preprocess.from_audio(
+            padded, *cpu_models, features=evaluate_core.PREDICTED,
+            loudness_bands=None,
+            config=run_config.replace(PRECISION='float32'), device='cpu')
+        cents = 1200 * torch.abs(
+            torch.log2(card_features[1] / cpu_features[1]))
+        preprocess_error = dict(
+            frames=card_features[1].shape[-1],
+            loudness_max_abs_db=float(
+                (card_features[0] - cpu_features[0]).abs().max()),
+            ppg_max_abs=float(
+                (card_features[3] - cpu_features[3]).abs().max()),
+            pitch_share_within_1_cent=float((cents < 1).float().mean()),
+            periodicity_share_within_0_001=float((
+                (card_features[2] - cpu_features[2]).abs() < 1e-3
+            ).float().mean()))
+        pitch_module = port.preprocess.pitch
+        with torch.inference_mode():
+            observations = [
+                torch.log_softmax(pitch_module.cnn_posteriorgram(
+                    model, torch.from_numpy(padded).to(where), hopsize
+                ).float(), -1).cpu()
+                for model, where in ((models[0], device),
+                                     (cpu_models[0], 'cpu'))]
+        top = max(ladder)
+        if {observation.shape for observation in observations} != {
+                (top, pitch_module.CANDIDATES)}:
+            raise AssertionError('the top bucket gave other pitch frames')
+        transition = viterbi.triangular_transition(
+            pitch_module.CANDIDATES, pitch_module.TRANSITION_WIDTH).to(device)
+        initial = torch.full(
+            (pitch_module.CANDIDATES,),
+            -float(np.log(np.float32(pitch_module.CANDIDATES))),
+            device=device)
+        rng = np.random.default_rng(14)
+        k2_error = check_decodes(viterbi, device, [
+            ('top_bucket_card', observations[0], transition),
+            ('top_bucket_cpu', observations[1], transition),
+            ('top_bucket_random', torch.log_softmax(torch.from_numpy(
+                3 * rng.standard_normal((top, pitch_module.CANDIDATES))
+            ).float(), -1), transition)], initial, 'evaluation_check')
+
+        # The card's metrics, recomputed on the CPU from the exported
+        # files and each job's edit (made on the card, as the evaluation
+        # makes it), against results.json
+        def edit_job(stem, condition, where):
+            features, frames = evaluate_core._load_features(
+                cache, stem, run_config, where)
+            shift, stretch, scale, _, _ = evaluate_core._conditions(
+                run_config)[condition]
+            *edited, frames = port.edit.from_padded_features(
+                *features, frames, shift, stretch, scale, run_config)
+            return [value[..., :frames].cpu() for value in edited]
+
+        differences = {}
+        for condition in objective:
+            metrics = port.evaluate.Metrics(include_wer=False,
+                                            config=run_config)
+            for pitch_file in sorted(
+                    (exported / condition).glob('*-pitch.npy')):
+                prefix = str(pitch_file)[:-len('-pitch.npy')]
+                predicted = [np.load(f'{prefix}-{name}.npy') for name in (
+                    'loudness', 'pitch', 'periodicity', 'ppg')]
+                parts = pitch_file.name.split('-')
+                edited = [value.numpy() for value in edit_job(
+                    f'{parts[1]}/{parts[2]}-{parts[3]}', condition, device)]
+                metrics.update(
+                    edited[0].mean(axis=-2), predicted[0].mean(axis=-2),
+                    edited[1], edited[2], predicted[1], predicted[2],
+                    edited[3], predicted[3])
+            for name, value in metrics().items():
+                card = objective[condition][name]
+                pairs = value.items() if isinstance(value, dict) else [
+                    (name, value)]
+                for key, number in pairs:
+                    reported = card[key] if isinstance(card, dict) else card
+                    differences[f'{condition}/{key}'] = abs(
+                        number - reported) / max(abs(reported), 1e-12)
+        worst = max(differences, key=differences.get)
+
+        # One job's edit stage on the card and on the CPU
+        card_edit, cpu_edit = (
+            edit_job(test_stems[0], 'stretched-141', where)
+            for where in (device, 'cpu'))
+        edit_error = dict(
+            loudness_max_abs_db=float(
+                (card_edit[0] - cpu_edit[0]).abs().max()),
+            pitch_max_abs_cents=float((1200 * torch.log2(
+                card_edit[1] / cpu_edit[1])).abs().max()),
+            periodicity_max_abs=float(
+                (card_edit[2] - cpu_edit[2]).abs().max()),
+            ppg_max_abs=float((card_edit[3] - cpu_edit[3]).abs().max()))
+        record = dict(
+            phase='evaluation_reference',
+            metrics_max_relative_difference=differences[worst],
+            metrics_worst=worst, edit_vs_cpu=edit_error,
+            preprocess_vs_cpu=preprocess_error,
+            profiled_preprocess=profiled, idle_share=idle_share(profiled))
+        emit(**record)
+        if differences[worst] > 1e-6 or \
+                preprocess_error['loudness_max_abs_db'] >= 0.05 or \
+                preprocess_error['ppg_max_abs'] >= 1e-3 or \
+                edit_error['loudness_max_abs_db'] > 0.05 or \
+                edit_error['ppg_max_abs'] > 1e-3 or \
+                edit_error['pitch_max_abs_cents'] > 1. or \
+                edit_error['periodicity_max_abs'] > 1e-3:
+            raise AssertionError('the evaluation disagrees with the CPU')
+
+        # The mels baseline on the same corpus: 'reconstructed' alone, one
+        # MelGenerator call (12 Blocks) per test stem
+        mels_config = port.config.load(
+            ROOT / 'configs' / 'baselines' / 'mels.py').replace(**dict(
+                dirs, EVAL_DIR=directory / 'eval-mels',
+                HIFIGAN_UPSAMPLE_INITIAL_SIZE=(
+                    config.HIFIGAN_UPSAMPLE_INITIAL_SIZE),
+                PRECISION=config.PRECISION))
+        mel_generator = port.models.init.seeded(
+            port.models.MelGenerator(mels_config), 9).to(device).eval()
+        mels_file = checkpoints / 'mels' / 'generator-00000009.pt'
+        checkpoint.save(mels_file, mel_generator.state_dict(), step=9)
+        phases, mels_inputs, restore = counted_phases(
+            torch, port)
+        try:
+            start = time.perf_counter()
+            mels = port.evaluate.datasets(
+                ['synthetic'], checkpoint=mels_file, config=mels_config,
+                device=device)['synthetic']
+            mels_seconds = time.perf_counter() - start
+        finally:
+            restore()
+        launches['mels'] = phases
+        spectrogram = np.load(
+            cache / f'{test_stems[0]}-spectrogram.npy')
+        reference = port.models.MelGenerator(
+            mels_config.replace(PRECISION='float32'))
+        reference.load_state_dict(
+            {k: v.cpu() for k, v in mel_generator.state_dict().items()})
+        mels_card = port.baseline.mels.from_features(
+            spectrogram, mel_generator, speaker=0, device=device)
+        mels_cpu = port.baseline.mels.from_features(
+            spectrogram, reference, speaker=0, device='cpu')
+        relative_rms = float(np.sqrt(
+            np.mean((mels_card - mels_cpu) ** 2) / np.mean(mels_cpu ** 2)))
+        reconstructed = mels['objective']['reconstructed']
+        record = dict(
+            phase='evaluation_mels', seconds=mels_seconds,
+            launches=phases, benchmark=mels['benchmark'],
+            conditions=sorted(mels['objective']),
+            objective_reconstructed=reconstructed,
+            audio_relative_rms_err=relative_rms,
+            wavs=sorted({wav.parent.name for wav in (
+                directory / 'eval-mels' / 'subjective').glob('*/*.wav')}))
+        emit(**record)
+        stems = len(test_stems)
+        if len(mels['objective']) != conditions or \
+                record['wavs'] != ['original', 'reconstructed'] or \
+                not np.isfinite(reconstructed['ppg']) or \
+                phases['generate'] != {
+                    'resblock': 12 * stems, 'viterbi': 0,
+                    'viterbi_logfreq': 0, 'generator_calls': stems} or \
+                phases['preprocess']['viterbi'] != stems or \
+                relative_rms >= 0.05:
+            raise AssertionError('the mels evaluation is wrong')
+
+        # K1 at every (batch, frames) that the evaluation's and the mels
+        # baseline's HiFi-GAN calls gave it (bucket groups are filled to
+        # the batch size), held to the bf16 bound with the zeroed-bias
+        # control
+        k1_checks = [
+            (frames, channels, KERNEL_SIZES, ((batch, frames),))
+            for inputs_seen, path_config in (
+                (generator_inputs, eval_config), (mels_inputs, mels_config))
+            for batch, bucket in sorted(inputs_seen)
+            for frames, channels in stage_shapes(path_config, bucket)]
+        k1_error = check_blocks(
+            torch, rng, resblock, device, k1_checks, 'evaluation_check')
+        emit(phase='evaluation_kernels',
+             generator_inputs=sorted(generator_inputs),
+             mels_inputs=sorted(mels_inputs),
+             k1_checks=sum(
+                 len(kernel_sizes) * len(sizes)
+                 for _, _, kernel_sizes, sizes in k1_checks),
+             k1_max_abs_err_at_batch_1=k1_error,
+             k2_max_state_difference=k2_error)
+
+        # The evaluate CLI in a process of its own
+        config_file = directory / 'cli.py'
+        config_file.write_text("MODULE = 'promonet_tpu_torch'\n" + ''.join(
+            f'{name} = {str(value)!r}\n' for name, value in dict(
+                dirs, RESULTS_DIR=directory / 'cli-results',
+                EVAL_DIR=directory / 'cli-eval').items()) +
+            f'HIFIGAN_UPSAMPLE_INITIAL_SIZE = '
+            f'{config.HIFIGAN_UPSAMPLE_INITIAL_SIZE}\n'
+            f'PRECISION = {config.PRECISION!r}\n')
+        device = torch.device(device)
+        gpu = str(device.index or 0) if device.type == 'cuda' else '-1'
+        start = time.perf_counter()
+        result = subprocess.run(
+            [sys.executable, '-m', 'promonet_tpu_torch.evaluate',
+             '--datasets', 'synthetic', '--gpu', gpu,
+             '--max_stems', '1', '--checkpoint', str(generator_file),
+             '--config', str(config_file)],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=CLI_EVALUATE_TIMEOUT)
+        wall = time.perf_counter() - start
+        if result.returncode:
+            raise AssertionError(
+                f'the evaluate CLI exited {result.returncode}:\n'
+                f'{result.stderr[-4000:]}')
+        written = json.loads((
+            directory / 'cli-results' / config.CONFIG / 'synthetic' /
+            'results.json').read_text())
+        record = dict(
+            phase='evaluation_cli', wall_s=wall,
+            conditions=sorted(written['objective']),
+            same_conditions=sorted(written['objective']) == sorted(objective),
+            benchmark=written['benchmark'])
+        emit(**record)
+        if not record['same_conditions']:
+            raise AssertionError('the evaluate CLI wrote other conditions')
+    return launches, k1_error, k2_error
+
+
 def main():
     try:
         import torch
@@ -961,16 +1481,8 @@ def main():
     bucket_out = port.data.bucket_frames(
         round(int(10 * config.SAMPLE_RATE) // config.HOPSIZE * 1.4),
         config.INFERENCE_FRAME_BUCKETS)
-    def stage_shapes(frames):
-        """(samples, channels) of each upsampling stage's Blocks"""
-        shapes, channels = [], config.HIFIGAN_UPSAMPLE_INITIAL_SIZE
-        for rate in config.HIFIGAN_UPSAMPLE_RATES:
-            channels, frames = channels // 2, frames * rate
-            shapes.append((frames, channels))
-        return shapes
-
-    shapes = stage_shapes(bucket_out)  # at the main path's synthesis bucket
-    k1_error = 0.
+    # At the main path's synthesis bucket
+    shapes = stage_shapes(config, bucket_out)
     # (frames, channels, kernel sizes, (batch, length) pairs): the main
     # path's shapes with ragged batches, the batched path's at batch 8,
     # one streaming window's, then an odd width
@@ -980,10 +1492,10 @@ def main():
         for frames, channels in shapes]
     k1_checks += [
         (frames, channels, KERNEL_SIZES, ((8, frames),))
-        for frames, channels in stage_shapes(BATCHED_BUCKET)]
+        for frames, channels in stage_shapes(config, BATCHED_BUCKET)]
     k1_checks += [
         (frames, channels, KERNEL_SIZES, ((1, frames),))
-        for frames, channels in stage_shapes(STREAM_WINDOW)]
+        for frames, channels in stage_shapes(config, STREAM_WINDOW)]
     k1_checks.append((1000, 48, (7,), ((2, 1000),)))
     # The fused pair keeps 128 - (k - 1) rows per thread block at 128
     # channels: a length below one block, one that ends three rows into
@@ -991,37 +1503,7 @@ def main():
     # shorter than the halo itself
     k1_checks.append((70, 128, (11,), ((2, 70), (2, 121))))
     k1_checks.append((5, 64, (11,), ((3, 5),)))
-    for frames, channels, kernel_sizes, sizes in k1_checks:
-        for kernel_size in kernel_sizes:
-            for batch, length in sizes:
-                x, weights, biases = block_problem(
-                    torch, rng, batch, length, channels, kernel_size, device)
-                plain = resblock.reference_block(
-                    x, weights, biases, DILATIONS, 0.1, torch.bfloat16
-                ).float()
-                kernel = resblock.fused_block(
-                    x, weights, biases, DILATIONS, 0.1).float()
-                torch.cuda.synchronize()
-                error = (kernel - plain).abs()
-                within = within_bf16_bound(torch, kernel, plain)
-                record = dict(
-                    phase='check', kernel='resblock', batch=batch,
-                    frames=length, channels=channels,
-                    kernel_size=kernel_size,
-                    max_abs_err=float(error.max()), within_bound=within)
-                if batch > 1:
-                    broken = biases.clone()
-                    broken[5, torch.argmax(broken[5].abs())] = 0.
-                    wrong = resblock.fused_block(
-                        x, weights, broken, DILATIONS, 0.1).float()
-                    record['zeroed_bias_caught'] = not within_bf16_bound(
-                        torch, wrong, plain)
-                    within = within and record['zeroed_bias_caught']
-                emit(**record)
-                if not within:
-                    raise AssertionError('resblock kernel disagrees')
-                if batch == 1:
-                    k1_error = max(k1_error, record['max_abs_err'])
+    k1_error = check_blocks(torch, rng, resblock, device, k1_checks)
 
     transition = viterbi.triangular_transition(256, 9.).to(device)
     initial = torch.full(
@@ -1055,29 +1537,7 @@ def main():
         ('random_dense_transition', random_observation(100), random_dense),
         ('batch_of_3', torch.stack([
             random_observation(bucket_in), ties, nan_frame]), transition)]
-    k2_error = 0
-    for label, observation, matrix in k2_checks:
-        batch = observation if observation.dim() == 3 else observation[None]
-        plain = np.stack([viterbi.decode(
-            sequence, matrix.cpu(), initial.cpu()).numpy()
-            for sequence in batch])
-        on_card_plain = np.stack([
-            viterbi.backtrace_plain(*viterbi.forward_plain(
-                sequence.to(device), matrix, initial)).cpu().numpy()
-            for sequence in batch])
-        kernel = viterbi.decode(
-            observation.to(device), matrix, initial).cpu().numpy()
-        kernel = kernel.reshape(plain.shape)
-        equal = bool(np.array_equal(kernel, plain) and
-                     np.array_equal(kernel, on_card_plain))
-        emit(phase='check', kernel='viterbi', observation=label,
-             frames=observation.shape[-2], equal=equal,
-             mismatches=int((kernel != plain).sum()))
-        k2_error = max(
-            k2_error, int(np.abs(kernel - plain).max()),
-            int(np.abs(kernel - on_card_plain).max()))
-        if not equal:
-            raise AssertionError('viterbi kernel disagrees')
+    k2_error = check_decodes(viterbi, device, k2_checks, initial)
 
     # K3 on the harmonics path's frequency axis, against the plain scan
     # over the dense transition on the card (and on the CPU where small)
@@ -1257,7 +1717,7 @@ def main():
         raise AssertionError('card and CPU reference disagree')
 
     # 6. Second path: harmonic contours, then audio in → edited audio out
-    all_features = port.preprocess.core.PADDED + ('harmonics',)
+    all_features = port.preprocess.core.DEFAULT_FEATURES + ('harmonics',)
     harmonics_module = port.preprocess.harmonics
     for call in (1, 2):
         resblock.fused_block.launches = 0
@@ -1402,7 +1862,14 @@ def main():
     emit(phase='speaker_and_cli_paths', launches={
         name: path_launches[name] for name in ('zeroshot', 'cli')})
 
-    # 7. Kernel times at the main path's shapes
+    # 14. The evaluation path
+    path_launches['evaluation'], k1_evaluation_error, k2_evaluation_error = \
+        evaluation_path(
+            torch, port, device, config, pitch_model, ppg_model, generator)
+    k1_error = max(k1_error, k1_evaluation_error)
+    k2_error = max(k2_error, k2_evaluation_error)
+
+    # 15. Kernel times at the main path's shapes
     k1 = dict(ms=0., plain_ms=0., library_ms=0., bound_ms=0.)
     bound_by_kind = {'operations': 0., 'bytes': 0.}
     for frames, channels in shapes:

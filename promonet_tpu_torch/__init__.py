@@ -10,8 +10,12 @@ whole chain in one call; batched synthesis
 (`synthesize.from_features_batched`), streaming (`synthesize.Streamer`,
 `synthesize.FARGANStreamer`), zero-shot speakers (`preprocess.speaker`,
 `ZERO_SHOT` generators), the `from_file*` entry points that read and
-write the JAX package's files, and the command line (`python -m
-promonet_tpu_torch.{preprocess,edit,synthesize}`). Each Pallas kernel of
+write the JAX package's files, the spectrogram-only baseline
+(`models.MelGenerator`, `baseline.mels`), objective evaluation
+(`evaluate.datasets` over the formant-synthesis corpus of
+`data.synthetic`, the partitions of `partition` and `data.Dataset`), and
+the command line (`python -m
+promonet_tpu_torch.{preprocess,edit,synthesize,evaluate}`). Each Pallas kernel of
 the JAX package is a hand-written CUDA kernel here (`csrc/`), beside a
 plain PyTorch version that serves CPU tensors. Entry points run on the
 GPU unless called with device='cpu'.
@@ -30,6 +34,9 @@ from . import edit
 from . import load
 from . import models
 from . import ops
+from . import partition
 from . import preprocess
 from . import synthesize
+from . import baseline
+from . import evaluate
 from . import utils

@@ -72,8 +72,13 @@ def _execute(path):
 
 
 def _resolve(given):
-    """Config of the given (default or overridden) values plus derived ones"""
+    """Config of the given (default or overridden) values plus derived ones
+
+    A directory (a name ending in _DIR) given as a string becomes a Path.
+    """
     given = {
-        name: value for name, value in given.items()
+        name: Path(value) if name.endswith('_DIR') and isinstance(
+            value, str) else value
+        for name, value in given.items()
         if name not in static.DERIVED}
     return Config(**given, **static.derive(given), _given=given)

@@ -4,11 +4,16 @@ A copy of the constants that the editing chain reads from the JAX
 package's defaults (`promonet_tpu/config/defaults.py`). Names and values
 are identical, so the same override files (`configs/*.py`,
 `runs/<run>/<config>.py`) configure both packages. Constants of parts
-that are not ported yet (training, discriminators, evaluation) are left
-out; an override file may still set them, and they are carried on the
-`Config` object unread.
+that are not ported yet (training, discriminators) are left out; an
+override file may still set them, and they are carried on the `Config`
+object unread. Every directory the port writes (the dataset cache, its
+partitions, evaluation artefacts and results) lies under `data/` at the
+root of the repository, outside the JAX package.
 """
 from pathlib import Path
+
+# Where everything the port writes lies (not a setting: lowercase)
+_data = Path(__file__).parent.parent.parent / 'data'
 
 
 ###############################################################################
@@ -66,6 +71,15 @@ WINDOW_SIZE = 1024
 AUGMENT_LOUDNESS = True
 AUGMENT_PITCH = True
 
+# Evaluate per-speaker adaptation partitions (needs training, not ported)
+ADAPTATION = False
+
+# The published datasets
+DATASETS = ['daps', 'libritts', 'vctk']
+
+# Seed of every random choice of the data pipeline (corpus, partitions)
+RANDOM_SEED = 1234
+
 # Band count for the averaged A-weighted loudness conditioning
 LOUDNESS_BANDS = 8
 
@@ -91,8 +105,13 @@ SPARSE_PPG_METHOD = 'percentile'
 # Sparsification strength (probability mass, or a count for 'topk')
 SPARSE_PPG_THRESHOLD = 0.85
 
-# Condition the generator on spectrograms alone (not ported)
+# Condition the generator on log-mels of the linear spectrogram alone
+# (`models.MelGenerator`, configs/baselines/mels.py)
 SPECTROGRAM_ONLY = False
+
+# Shift the MelGenerator's log-mels up by the log dynamic range
+# compression threshold
+SPARSE_MELS = False
 
 # Which dataset the generator was trained on (speaker count, pitch bins)
 TRAINING_DATASET = 'vctk'
@@ -126,6 +145,24 @@ CHECKPOINTS_DIR = Path(__file__).parent.parent.parent / 'checkpoints_torch'
 # Training runs; a generator without a checkpoint comes from
 # RUNS_DIR / CONFIG (`load.generator`)
 RUNS_DIR = Path(__file__).parent.parent.parent / 'runs'
+
+# Preprocessed datasets: <dataset>/<speaker>/<utterance>-100.wav and its
+# feature files (the JAX package's layout and location, so a corpus made
+# by either package serves both)
+CACHE_DIR = _data / 'cache'
+
+# The port's partitions: {multispeaker,adaptation}/<dataset>.json
+PARTITIONS_DIR = _data / 'partitions'
+
+# Evaluation artefacts: objective/<condition>/*.npy and
+# subjective/<condition>/*.wav
+EVAL_DIR = _data / 'eval'
+
+# Evaluation results: <CONFIG>/<dataset>/results.json
+RESULTS_DIR = _data / 'results'
+
+# Augmentation ratio files of the JAX package, read only
+AUGMENT_DIR = ASSETS_DIR / 'augmentations'
 
 
 ###############################################################################
@@ -210,3 +247,13 @@ INFERENCE_FRAME_BUCKETS = [
 # Pitch estimation front-end: the learned 'cnn' estimator or the 'dsp'
 # normalized cross-correlation
 PITCH_ESTIMATOR = 'cnn'
+
+
+###############################################################################
+# Evaluation
+###############################################################################
+
+
+# Edit ratios of the evaluation's shifted, stretched, scaled, balance and
+# loudness conditions
+EVALUATION_RATIOS = [.717, 1.414]

@@ -17,6 +17,7 @@ from .. import config as config_module
 from .. import convert
 from .. import device as device_module
 from .. import load
+from ..data import bucket_frames
 from ..preprocess.ppg import (
     PHONEME_TO_INDEX_MAPPING, PHONEMES, SILENCE, VOICED)
 from . import grid as grid_module
@@ -91,6 +92,64 @@ def from_features(
     if return_grid:
         return loudness, pitch, periodicity, ppg, grid
     return loudness, pitch, periodicity, ppg
+
+
+def from_padded_features(
+    loudness,
+    pitch,
+    periodicity,
+    ppg,
+    frames,
+    pitch_shift_cents=None,
+    time_stretch_ratio=None,
+    loudness_scale_db=None,
+    config=None
+):
+    """Edit bucket-shaped features, as the JAX package edits them on its
+    bucket-resident path (`_from_padded_features`)
+
+    The features are (..., bucket) tensors whose first `frames` frames are
+    the utterance's; the tail must be finite. A stretch samples the grid
+    arange(output bucket) * step, step = (frames - 1) / (out_frames - 1) in
+    float32, so the output's tail samples the input's tail. Only the
+    constant-ratio stretch has this form.
+
+    Returns
+        edited loudness, pitch, periodicity and ppg at the output bucket
+        (config.INFERENCE_FRAME_BUCKETS), and out_frames, the output's
+        true frame count
+    """
+    config = config_module.default() if config is None else config
+    device = pitch.device
+    shift_ratio = torch.tensor(
+        convert.cents_to_ratio(pitch_shift_cents)
+        if pitch_shift_cents is not None else 1.,
+        dtype=torch.float32, device=device)
+    scale_db = torch.tensor(
+        loudness_scale_db if loudness_scale_db is not None else 0.,
+        dtype=torch.float32, device=device)
+    if time_stretch_ratio is None:
+        if pitch_shift_cents is None and loudness_scale_db is None:
+            return loudness, pitch, periodicity, ppg, frames
+        pitch = pitch * shift_ratio
+        if pitch_shift_cents is not None:
+            pitch = torch.clamp(pitch, config.FMIN, config.FMAX)
+        return loudness + scale_db, pitch, periodicity, ppg, frames
+
+    out_frames = int(round(frames / time_stretch_ratio))
+    bucket_out = bucket_frames(out_frames, config.INFERENCE_FRAME_BUCKETS)
+    step = (frames - 1) / (out_frames - 1) if out_frames > 1 else 0.
+    grid = torch.arange(bucket_out, dtype=torch.float32, device=device) * \
+        torch.tensor(step, dtype=torch.float32, device=device)
+    pitch = 2 ** grid_module.sample(torch.log2(pitch), grid) * shift_ratio
+    if pitch_shift_cents is not None:
+        pitch = torch.clamp(pitch, config.FMIN, config.FMAX)
+    return (
+        grid_module.sample(loudness, grid) + scale_db,
+        pitch,
+        grid_module.sample(periodicity, grid),
+        grid_module.sample(ppg, grid, config.PPG_INTERP_METHOD),
+        out_frames)
 
 
 def from_file(

@@ -9,6 +9,7 @@ found, each falls back as the JAX package does (seeded weights, or no
 speaker encoder, which leaves the spectral embedding) and says so on
 stderr.
 """
+import json
 import sys
 from pathlib import Path
 
@@ -18,6 +19,7 @@ import torch
 from . import config as config_module
 from . import device as device_module
 from .ops import grid
+from .partition import core as partition_core
 from .utils import audio as audio_module
 from .utils import checkpoint as checkpoint_module
 
@@ -94,6 +96,28 @@ def ppg(file, resample_length=None, config=None, device='cuda'):
         torch.log(torch.sum(values + 1e-8, dim=-2, keepdim=True)))
 
 
+def partition(dataset, adapt=None, config=None):
+    """The partition of a dataset: {name: [stem, ...]}
+
+    Read from config.PARTITIONS_DIR / ('adaptation' if adapt else
+    'multispeaker') / '<dataset>.json', which `partition.dataset` and
+    `data.synthetic.create` write. A published dataset without a
+    partition of the port's own takes the shipped reference partition
+    (`partition.core.published`), as the JAX package's partitioning
+    does. adapt None takes config.ADAPTATION.
+    """
+    config = config_module.default() if config is None else config
+    if adapt is None:
+        adapt = config.ADAPTATION
+    file = partition_core.path(dataset, adapt, config)
+    if not file.exists():
+        published = partition_core.published(dataset, adapt, config)
+        if published is not None:
+            return published
+    with open(file) as handle:
+        return json.load(handle)
+
+
 def text(file):
     """The contents of a UTF-8 text file"""
     with open(file, encoding='utf-8') as handle:
@@ -136,7 +160,8 @@ def pitch_distribution(config=None):
 
 
 def generator(checkpoint=None, config=None, device='cuda'):
-    """A `models.Generator` with its weights, on `device`, in eval mode
+    """A `models.Generator` (a `models.MelGenerator` under
+    config.SPECTROGRAM_ONLY) with its weights, on `device`, in eval mode
 
     Resolved as the JAX package's `synthesize` resolves its generator:
     - `checkpoint` a file: its weights;
@@ -145,11 +170,11 @@ def generator(checkpoint=None, config=None, device='cuda'):
       checkpoint under RUNS_DIR / CONFIG if its weights fit the
       configuration; else weights seeded from 0, with a notice.
     """
-    from .models import Generator, init
+    from .models import Generator, MelGenerator, init
 
     config = config_module.default() if config is None else config
     device = device_module.resolve(device)
-    model = Generator(config)
+    model = (MelGenerator if config.SPECTROGRAM_ONLY else Generator)(config)
     if checkpoint is None and config.DEFAULT_CHECKPOINT is not None:
         checkpoint = config.DEFAULT_CHECKPOINT
     if checkpoint is not None:

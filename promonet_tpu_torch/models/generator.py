@@ -4,8 +4,10 @@ Counterpart of `promonet_tpu/models/generator.py`, with the backbones its
 `BaseGenerator.setup` dispatches on `MODEL` ('hifigan', 'fargan',
 'vocos') and its two speaker conditionings: a learned table of
 NUM_SPEAKERS rows, or under ZERO_SHOT a Dense layer over
-(WAVLM_EMBEDDING_CHANNELS,) x-vectors. Public layouts are the JAX
-package's: features (B, C, T) in, audio (B, 1, T * HOPSIZE) out.
+(WAVLM_EMBEDDING_CHANNELS,) x-vectors. `Generator` conditions on the
+interpretable features, `MelGenerator` (SPECTROGRAM_ONLY) on the log-mels
+of a linear spectrogram. Public layouts are the JAX package's: features
+(B, C, T) in, audio (B, 1, T * HOPSIZE) out.
 """
 import numpy as np
 import torch
@@ -13,7 +15,7 @@ from torch import nn
 
 from .. import config as config_module
 from .. import load
-from ..ops import sparse
+from ..ops import mel as mel_ops, sparse
 from .fargan import FARGAN
 from .hifigan import HiFiGAN
 from .modules import Dense
@@ -34,28 +36,23 @@ def _band_average(loudness, bands):
         dim=-2)
 
 
-class Generator(nn.Module):
-    """Proposed generator over interpretable features"""
+class BaseGenerator(nn.Module):
+    """The backbone of config.MODEL and the speaker conditioning
 
-    def __init__(self, config=None):
+    num_features: width of the (B, T, num_features) backbone input
+    """
+
+    def __init__(self, config, num_features):
         super().__init__()
-        config = config_module.default() if config is None else config
-        if config.SPECTROGRAM_ONLY or config.MODEL == 'cargan':
-            raise NotImplementedError(
-                "The spectrogram-only generator (SPECTROGRAM_ONLY) and "
-                "MODEL='cargan' are not ported")
+        if config.MODEL == 'cargan':
+            raise NotImplementedError("MODEL='cargan' is not ported")
         self.config = config
         self.dtype = (
             torch.bfloat16 if config.PRECISION == 'bfloat16'
             else torch.float32)
-        if config.VARIABLE_PITCH_BINS:
-            # A plain attribute, not a buffer: `.to(dtype)` must not round it
-            self.pitch_distribution = torch.from_numpy(
-                np.asarray(load.pitch_distribution(config), np.float32))
-        features = config.NUM_FEATURES
         if config.MODEL == 'hifigan':
             self.backbone = HiFiGAN(
-                features,
+                num_features,
                 config.GLOBAL_CHANNELS,
                 initial_size=config.HIFIGAN_UPSAMPLE_INITIAL_SIZE,
                 upsample_kernel_sizes=tuple(
@@ -68,7 +65,7 @@ class Generator(nn.Module):
                 lrelu_slope=config.LRELU_SLOPE)
         elif config.MODEL == 'vocos':
             self.backbone = Vocos(
-                features,
+                num_features,
                 config.GLOBAL_CHANNELS,
                 channels=config.VOCOS_CHANNELS,
                 pointwise_channels=config.VOCOS_POINTWISE_CHANNELS,
@@ -76,9 +73,8 @@ class Generator(nn.Module):
                 n_fft=config.NUM_FFT,
                 hop_length=config.HOPSIZE)
         elif config.MODEL == 'fargan':
-            # One more input channel: the pitch period
             self.backbone = FARGAN(
-                features + 1, config.GLOBAL_CHANNELS,
+                num_features, config.GLOBAL_CHANNELS,
                 num_previous=config.NUM_PREVIOUS_SAMPLES)
         else:
             raise ValueError(f'Generator model {config.MODEL} is not defined')
@@ -89,6 +85,45 @@ class Generator(nn.Module):
         else:
             self.speaker_embedding = nn.Embedding(
                 config.NUM_SPEAKERS, config.SPEAKER_CHANNELS)
+
+    def prepare_global_features(
+        self, speakers, spectral_balance_ratios, loudness_ratios
+    ):
+        """Speaker embedding ⊕ augmentation ratios, (B, 1, G)
+
+        The zero-shot Dense computes in the generator's dtype, as Flax's
+        `nn.Dense(dtype=...)` does: in bf16 the embedding is rounded to
+        bf16 before the ratios join it.
+        """
+        if self.config.ZERO_SHOT:
+            embedding = self.speaker_embedding(speakers.float(), self.dtype)
+        else:
+            embedding = self.speaker_embedding(speakers)
+        columns = [embedding.float()[:, None, :]]
+        if self.config.AUGMENT_PITCH:
+            columns.append(spectral_balance_ratios.float()[:, None, None])
+        if self.config.AUGMENT_LOUDNESS:
+            columns.append(loudness_ratios.float()[:, None, None])
+        return torch.cat(columns, dim=-1).to(self.dtype)
+
+
+class Generator(BaseGenerator):
+    """Proposed generator over interpretable features"""
+
+    def __init__(self, config=None):
+        config = config_module.default() if config is None else config
+        if config.SPECTROGRAM_ONLY:
+            raise ValueError(
+                'A SPECTROGRAM_ONLY configuration conditions on '
+                'spectrograms: build models.MelGenerator (load.generator '
+                'does)')
+        # FARGAN takes one more input channel: the pitch period
+        super().__init__(
+            config, config.NUM_FEATURES + (config.MODEL == 'fargan'))
+        if config.VARIABLE_PITCH_BINS:
+            # A plain attribute, not a buffer: `.to(dtype)` must not round it
+            self.pitch_distribution = torch.from_numpy(
+                np.asarray(load.pitch_distribution(config), np.float32))
         if 'pitch' in config.INPUT_FEATURES and config.PITCH_EMBEDDING:
             self.pitch_embed = nn.Embedding(
                 config.PITCH_BINS, config.PITCH_EMBEDDING_SIZE)
@@ -136,26 +171,6 @@ class Generator(nn.Module):
         audio = self.backbone(features, global_features, self.dtype)
         return audio.transpose(1, 2)
 
-    def prepare_global_features(
-        self, speakers, spectral_balance_ratios, loudness_ratios
-    ):
-        """Speaker embedding ⊕ augmentation ratios, (B, 1, G)
-
-        The zero-shot Dense computes in the generator's dtype, as Flax's
-        `nn.Dense(dtype=...)` does: in bf16 the embedding is rounded to
-        bf16 before the ratios join it.
-        """
-        if self.config.ZERO_SHOT:
-            embedding = self.speaker_embedding(speakers.float(), self.dtype)
-        else:
-            embedding = self.speaker_embedding(speakers)
-        columns = [embedding.float()[:, None, :]]
-        if self.config.AUGMENT_PITCH:
-            columns.append(spectral_balance_ratios.float()[:, None, None])
-        if self.config.AUGMENT_LOUDNESS:
-            columns.append(loudness_ratios.float()[:, None, None])
-        return torch.cat(columns, dim=-1).to(self.dtype)
-
     def prepare_features(self, loudness, pitch, periodicity, ppg):
         """Assemble the (B, T, NUM_FEATURES) network input"""
         config = self.config
@@ -198,3 +213,54 @@ class Generator(nn.Module):
                 torch.clamp(pitch, config.FMIN, config.FMAX))[..., None])
 
         return torch.cat([c.to(self.dtype) for c in columns], dim=-1)
+
+
+class MelGenerator(BaseGenerator):
+    """Generate speech from the log-mels of a linear spectrogram
+
+    Counterpart of `promonet_tpu.models.MelGenerator`, the
+    spectrogram-only baseline (SPECTROGRAM_ONLY, configs/baselines/mels.py):
+    the same backbone and global features as `Generator`, over NUM_MELS
+    log-mel channels. HiFi-GAN and Vocos backbones only: FARGAN's pitch
+    lookup needs the pitch, which a spectrogram does not give.
+    """
+
+    def __init__(self, config=None):
+        config = config_module.default() if config is None else config
+        if config.MODEL == 'fargan':
+            raise ValueError(
+                'MelGenerator takes no pitch, which FARGAN needs')
+        super().__init__(config, config.NUM_MELS)
+
+    def forward(
+        self, spectrograms, speakers, spectral_balance_ratios,
+        loudness_ratios
+    ):
+        """
+        Arguments
+            spectrograms: (B, NUM_FFT // 2 + 1, T) linear magnitudes
+            speakers, spectral_balance_ratios, loudness_ratios: as
+                `Generator.forward` takes them
+
+        Returns
+            audio: (B, 1, T * HOPSIZE), float32
+        """
+        features = self.prepare_features(spectrograms)
+        global_features = self.prepare_global_features(
+            speakers, spectral_balance_ratios, loudness_ratios)
+        return self.backbone(
+            features, global_features, self.dtype).transpose(1, 2)
+
+    def prepare_features(self, spectrograms):
+        """Linear spectrogram (B, F, T) → log-mels (B, T, NUM_MELS)"""
+        config = self.config
+        features = mel_ops.linear_to_mel(
+            spectrograms.float(),
+            config.SAMPLE_RATE,
+            config.NUM_FFT,
+            config.NUM_MELS,
+            config.LOG_DYNAMIC_RANGE_COMPRESSION_THRESHOLD)
+        if config.SPARSE_MELS:
+            features = features + \
+                config.LOG_DYNAMIC_RANGE_COMPRESSION_THRESHOLD
+        return features.transpose(-1, -2).to(self.dtype)

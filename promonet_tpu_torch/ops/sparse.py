@@ -53,3 +53,25 @@ def sparsify(ppg, method='percentile', threshold=0.85):
     sparse = torch.where(mask, ppg, torch.zeros_like(ppg))
     total = torch.clamp(sparse.sum(dim=-2, keepdim=True), min=1e-8)
     return sparse / total
+
+
+def jensen_shannon(p, q, dim=-2, eps=1e-8):
+    """Jensen-Shannon distance between per-frame distributions, in [0, 1]
+
+    Base-2 logs, so the largest divergence is 1; the square root of the
+    divergence, clipped to [0, 1], is returned (a metric). p and q are
+    normalised along `dim` first.
+    """
+    p = p / torch.clamp(p.sum(dim=dim, keepdim=True), min=eps)
+    q = q / torch.clamp(q.sum(dim=dim, keepdim=True), min=eps)
+    m = 0.5 * (p + q)
+
+    def kl(a, b):
+        return torch.sum(
+            torch.where(
+                a > 0, a * (torch.log2(a + eps) - torch.log2(b + eps)),
+                torch.zeros((), dtype=a.dtype, device=a.device)),
+            dim=dim)
+
+    jsd = 0.5 * kl(p, m) + 0.5 * kl(q, m)
+    return torch.sqrt(torch.clamp(jsd, 0., 1.))

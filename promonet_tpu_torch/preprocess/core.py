@@ -1,7 +1,7 @@
 """Feature extraction (counterpart of `promonet_tpu/preprocess/core.py`)
 
-For loudness, pitch, periodicity and PPG the audio is zero-padded to a
-bucketed frame count, every feature is computed on the padded audio, and
+For loudness, pitch, periodicity, the linear spectrogram and the PPG the
+audio is zero-padded to a bucketed frame count, every feature is computed on the padded audio, and
 the results are trimmed to the true frame count, as the JAX package's
 fused extractor does. The padding changes the features of the last
 frames, so the bucket ladder is part of the result. Harmonics and the
@@ -26,10 +26,13 @@ from . import speaker as speaker_module
 from . import spectrogram as spectrogram_module
 
 # Features computed on the bucket-padded audio
-PADDED = ('loudness', 'pitch', 'periodicity', 'ppg')
+PADDED = ('loudness', 'pitch', 'periodicity', 'spectrogram', 'ppg')
 
 # Every feature, in the order `from_audio` returns them
 FEATURES = PADDED + ('harmonics', 'speaker')
+
+# The features the entry points compute unless asked for others
+DEFAULT_FEATURES = ('loudness', 'pitch', 'periodicity', 'ppg')
 
 
 def from_audio(
@@ -37,7 +40,7 @@ def from_audio(
     pitch_model,
     ppg_model,
     sample_rate=None,
-    features=PADDED,
+    features=DEFAULT_FEATURES,
     loudness_bands='default',
     max_harmonics=None,
     config=None,
@@ -65,7 +68,8 @@ def from_audio(
 
     Returns
         the requested features in the order loudness (bands or n_freq, T),
-        pitch (1, T) in Hz, periodicity (1, T), ppg (PPG_CHANNELS, T),
+        pitch (1, T) in Hz, periodicity (1, T), spectrogram (n_freq, T)
+        (magnitudes), ppg (PPG_CHANNELS, T),
         harmonics (max_harmonics, T) in Hz, speaker
         (WAVLM_EMBEDDING_CHANNELS,), as float32 tensors on `device`
     """
@@ -104,7 +108,7 @@ def from_file(
     file,
     pitch_model,
     ppg_model,
-    features=PADDED,
+    features=DEFAULT_FEATURES,
     loudness_bands='default',
     config=None,
     device='cuda',
@@ -123,7 +127,7 @@ def from_file_to_file(
     pitch_model,
     ppg_model,
     output_prefix=None,
-    features=PADDED,
+    features=DEFAULT_FEATURES,
     loudness_bands='default',
     config=None,
     device='cuda',
@@ -147,7 +151,7 @@ def from_files_to_files(
     pitch_model,
     ppg_model,
     output_prefixes=None,
-    features=PADDED,
+    features=DEFAULT_FEATURES,
     loudness_bands='default',
     config=None,
     device='cuda',
@@ -221,9 +225,12 @@ def extract_padded(
                 decoder, interp_at = 'argmax', config.VOICING_THRESHOLD
             out['pitch'], out['periodicity'] = pitch_module.estimate(
                 audio, pitch_model, config, decoder, interp_at)
+        if 'spectrogram' in features or 'ppg' in features:
+            spectrogram = spectrogram_module.from_audio(audio[None], config)[0]
+            if 'spectrogram' in features:
+                out['spectrogram'] = spectrogram
         if 'ppg' in features:
-            spectrogram = spectrogram_module.from_audio(audio[None], config)
-            mels = spectrogram_module.linear_to_mel(spectrogram[0], config)
+            mels = spectrogram_module.linear_to_mel(spectrogram, config)
             log_probs = ppg_model(mels.transpose(0, 1)[None])
             out['ppg'] = torch.exp(log_probs[0].transpose(0, 1))
     return out

@@ -12,13 +12,11 @@ with every intermediate left on the device at its bucket's length. The
 import numpy as np
 import torch
 
-from .. import convert
 from .. import device as device_module
 from .. import edit as edit_module
 from .. import load
 from .. import preprocess as preprocess_module
 from ..data import bucket_frames
-from ..ops import grid as grid_ops
 from ..utils import audio as audio_module
 
 
@@ -299,9 +297,6 @@ def from_edited_audio(
     hopsize = config.HOPSIZE
     frames = audio.shape[-1] // hopsize
     bucket_in = bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS)
-    ratio = 1. if time_stretch_ratio is None else time_stretch_ratio
-    out_frames = int(round(frames / ratio))
-    bucket_out = bucket_frames(out_frames, config.INFERENCE_FRAME_BUCKETS)
 
     # PCM crosses to the card as int16, half the bytes of float32
     samples = torch.from_numpy(audio[:, :bucket_in * hopsize]).to(device)
@@ -309,25 +304,16 @@ def from_edited_audio(
         samples.float() / 32768. if samples.dtype == torch.int16 else samples,
         bucket_in * hopsize, device)
     features = preprocess_module.core.extract_padded(
-        padded, pitch_model, ppg_model, preprocess_module.core.PADDED, None,
-        config)
+        padded, pitch_model, ppg_model,
+        preprocess_module.core.DEFAULT_FEATURES, None, config)
 
-    # Per-output-frame step in input frames, in float32 as the grid is
-    step = (frames - 1) / (out_frames - 1) if out_frames > 1 else 0.
-    grid = torch.arange(bucket_out, dtype=torch.float32, device=device) * \
-        torch.tensor(step, dtype=torch.float32, device=device)
-    pitch = 2 ** grid_ops.sample(torch.log2(features['pitch']), grid)
-    periodicity = grid_ops.sample(features['periodicity'], grid)
-    loudness = grid_ops.sample(features['loudness'], grid) + torch.tensor(
-        0. if loudness_scale_db is None else loudness_scale_db,
-        dtype=torch.float32, device=device)
-    ppg = grid_ops.sample(features['ppg'], grid, config.PPG_INTERP_METHOD)
-    if pitch_shift_cents is not None:
-        pitch = torch.clamp(
-            pitch * torch.tensor(
-                convert.cents_to_ratio(pitch_shift_cents),
-                dtype=torch.float32, device=device),
-            config.FMIN, config.FMAX)
+    # Without a stretch the features still pass the grid, at ratio 1
+    loudness, pitch, periodicity, ppg, out_frames = \
+        edit_module.from_padded_features(
+            features['loudness'], features['pitch'], features['periodicity'],
+            features['ppg'], frames, pitch_shift_cents,
+            1. if time_stretch_ratio is None else time_stretch_ratio,
+            loudness_scale_db, config)
 
     with torch.no_grad():
         output = generator(

@@ -1,1 +1,1 @@
-from . import audio, checkpoint
+from . import audio, checkpoint, timer

@@ -12,7 +12,16 @@ smoke's harmonic audio (4 harmonics of a vibrato around 180 Hz):
   configuration (`synthetic.py`, 24 speakers), timed on its second call,
   and the pitch of the synthesized audio against the edited contour;
 - the shipped speaker encoder: the x-vector of the audio, and the cosine
-  between the x-vectors of two signals an octave apart.
+  between the x-vectors of two signals an octave apart;
+- the objective evaluation of the release generator: the formant corpus
+  regenerated as scripts/regen_corpus.py makes it (24 speakers x 56
+  utterances x 2.85 s, the same random stream, so the same stems and
+  partition as the shipped one), its 24 test stems preprocessed on the
+  card under the release configuration (the 'dsp' pitch estimator), then
+  `evaluate.datasets` over the 11 conditions with the shipped PPG encoder
+  as transcriber, against the reference thresholds (pitch < 50 cents,
+  periodicity < 0.1, loudness < 6 dB, PPG JSD < 0.1). Its files go to
+  build/trained_evaluation/.
 
     python scripts/trained_weights.py [--checkpoints checkpoints_torch]
 
@@ -21,6 +30,7 @@ last. Needs a CUDA device; with none it exits 1 and runs nothing.
 """
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -36,6 +46,9 @@ import promonet_tpu_torch as port  # noqa: E402
 
 EDIT = dict(
     pitch_shift_cents=400., time_stretch_ratio=1 / 1.4, loudness_scale_db=3.)
+
+# The reference system's frame-error thresholds of a usable model
+THRESHOLDS = dict(pitch=50., periodicity=.1, loudness=6., ppg=.1)
 
 
 def harmonic_audio(seconds, sample_rate, base=180.):
@@ -136,12 +149,76 @@ def main():
         norm=float(torch.linalg.vector_norm(xvector)),
         cosine_octave_apart=float(torch.dot(xvector, lower)))), flush=True)
 
+    evaluation(checkpoints, device)
+
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0] if smi else 'nvidia-smi: no output', flush=True)
     return 0
+
+
+def evaluation(checkpoints, device):
+    """The release generator's objective evaluation on a regenerated
+    corpus; prints the corpus, preprocessing and evaluation lines"""
+    directory = ROOT / 'build' / 'trained_evaluation'
+    shutil.rmtree(directory, ignore_errors=True)
+    config = port.config.load(checkpoints / 'synthetic.py').replace(
+        CHECKPOINTS_DIR=checkpoints, CACHE_DIR=directory / 'cache',
+        PARTITIONS_DIR=directory / 'partitions', EVAL_DIR=directory / 'eval',
+        RESULTS_DIR=directory / 'results')
+
+    start = time.perf_counter()
+    cache = port.data.synthetic.create(
+        'synthetic', speakers=24, utterances=56, seconds=2.85,
+        preprocess=False, config=config, device=device)
+    corpus_seconds = time.perf_counter() - start
+    partition = port.load.partition('synthetic', False, config)
+    with open(config.ASSETS_DIR / 'partitions' / 'multispeaker' /
+              'synthetic.json') as file:
+        shipped = json.load(file)
+    test = partition['test']
+    pitch_model = (
+        port.load.pitch_model(config=config, device=device)
+        if config.PITCH_ESTIMATOR == 'cnn' else None)
+    ppg_model = port.load.ppg_model(config=config, device=device)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    port.preprocess.from_files_to_files(
+        [cache / f'{stem}.wav' for stem in test], pitch_model, ppg_model,
+        [cache / stem for stem in test],
+        port.data.preprocess.core.FEATURES, loudness_bands=None,
+        config=config, device=device)
+    torch.cuda.synchronize()
+    preprocess_seconds = time.perf_counter() - start
+    print(json.dumps(dict(
+        measure='evaluation_corpus', utterances=len(list(
+            cache.glob('*/*.wav'))), seconds=corpus_seconds,
+        test_stems=len(test), preprocess_seconds=preprocess_seconds,
+        pitch_estimator=config.PITCH_ESTIMATOR,
+        partition_equals_shipped=partition == shipped)), flush=True)
+
+    start = time.perf_counter()
+    results = port.evaluate.datasets(
+        ['synthetic'], checkpoint=checkpoints / 'generator-00155000.pt',
+        config=config, device=device)['synthetic']
+    seconds = time.perf_counter() - start
+    objective = results['objective']
+    reconstructed = objective['reconstructed']
+    values = dict(
+        pitch=reconstructed['pitch'],
+        periodicity=reconstructed['periodicity'],
+        loudness=reconstructed['loudness']['loudness'],
+        ppg=reconstructed['ppg'])
+    print(json.dumps(dict(
+        measure='evaluation', seconds=seconds,
+        audio_seconds=results['num_samples'] / config.SAMPLE_RATE,
+        benchmark=results['benchmark'], objective=objective,
+        thresholds=THRESHOLDS,
+        reconstructed_under_thresholds={
+            name: value < THRESHOLDS[name] for name, value in values.items()}
+    )), flush=True)
 
 
 if __name__ == '__main__':

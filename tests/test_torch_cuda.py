@@ -625,3 +625,71 @@ def test_clis_on_the_card_write_what_the_calls_write(device, tmp_path,
              for folder in (cli, ours)]
     assert audio[0].shape == (1, round(86 / 0.7) * 256)
     assert _within_bound(*audio)
+
+
+def test_resblock_kernel_serves_the_mel_generator(device):
+    """MelGenerator at full width (configs/baselines/mels.py, bf16) runs
+    its 12 Blocks through K1; its audio against the plain CPU path in
+    float32 within 5% relative RMS, as the smoke holds Generator"""
+    from pathlib import Path
+
+    import promonet_tpu_torch as port
+    config = port.config.load(
+        Path(__file__).resolve().parent.parent / 'configs' / 'baselines' /
+        'mels.py')
+    generator = port.models.init.seeded(
+        port.models.MelGenerator(config), 8).to(device).eval()
+    reference = port.models.MelGenerator(config.replace(PRECISION='float32'))
+    reference.load_state_dict(
+        {name: value.cpu() for name, value in generator.state_dict().items()})
+    spectrogram = port.preprocess.spectrogram.from_audio(
+        torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (1, 100 * 256)).astype(np.float32) * 0.1), config)
+    launches = resblock.fused_block.launches
+    audio = port.baseline.mels.from_features(
+        spectrogram, generator, speaker=3, device=device)
+    assert resblock.fused_block.launches == launches + 12
+    plain = port.baseline.mels.from_features(
+        spectrogram, reference, speaker=3, device='cpu')
+    assert audio.shape == plain.shape == (1, 100 * 256)
+    assert np.sqrt(np.mean((audio - plain) ** 2) / np.mean(plain ** 2)) < 0.05
+
+
+def test_evaluation_decodes_once_per_job_on_the_card(device, tmp_path):
+    """The corpus takes one K2 decode per wav; the evaluation's
+    re-preprocess one per job, and every generator call 12 K1 calls"""
+    import contextlib
+
+    import promonet_tpu_torch as port
+    config = port.config.load().replace(
+        CACHE_DIR=tmp_path / 'cache', PARTITIONS_DIR=tmp_path / 'partitions',
+        EVAL_DIR=tmp_path / 'eval', RESULTS_DIR=tmp_path / 'results',
+        CHECKPOINTS_DIR=tmp_path / 'checkpoints', RUNS_DIR=tmp_path / 'runs',
+        EVALUATION_RATIOS=[1.414])
+    decodes = viterbi.decode.launches
+    port.data.synthetic.create(
+        speakers=2, utterances=3, seconds=0.5, config=config, device=device)
+    assert viterbi.decode.launches == decodes + 6
+
+    phases, phase = {}, port.utils.timer.Timer.phase
+
+    @contextlib.contextmanager
+    def counted(self, name):
+        before = (viterbi.decode.launches, resblock.fused_block.launches)
+        with phase(self, name):
+            yield
+        counts = phases.setdefault(name, [0, 0])
+        counts[0] += viterbi.decode.launches - before[0]
+        counts[1] += resblock.fused_block.launches - before[1]
+
+    port.utils.timer.Timer.phase = counted
+    try:
+        results = port.evaluate.datasets(
+            ['synthetic'], config=config, device=device)
+    finally:
+        port.utils.timer.Timer.phase = phase
+    assert len(results['synthetic']['objective']) == 6
+    # 2 test stems x 6 conditions
+    assert phases['preprocess'] == [12, 0]
+    assert phases['generate'][0] == 0 and phases['generate'][1] % 12 == 0
+    assert phases['generate'][1] > 0

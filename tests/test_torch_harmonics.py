@@ -515,6 +515,8 @@ def test_preprocess_from_audio_orders_harmonics_last():
         audio, None, None, features=('harmonics',), max_harmonics=2,
         config=config, device='cpu')
     np.testing.assert_array_equal(only.numpy(), theirs[1][:2])
-    with pytest.raises(NotImplementedError, match='spectrogram'):
+    # 'spectrogram' is ported (tests/test_torch_mels.py); 'text' is not a
+    # feature of the port's from_audio (preprocess.text transcribes)
+    with pytest.raises(NotImplementedError, match='text'):
         port.preprocess.from_audio(
-            audio, None, None, features=('spectrogram',), device='cpu')
+            audio, None, None, features=('text',), device='cpu')
