@@ -133,7 +133,32 @@ Phases, each printed as one JSON line with the seconds since the start
    bucket groups at batch 8, the mels stems at batch 1). Last `python -m
    promonet_tpu_torch.evaluate --gpu 0 --max_stems 1` in a process of
    its own must write results.json with the same conditions.
-15. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
+15. training path, full width (the default configuration: HiFi-GAN 512,
+   five period and the complex multi-band discriminators, batch 64 of
+   16384 samples, bf16, REMAT; the seeded extractors of phase 4 written
+   as port checkpoints under build/): a formant corpus of 16 speakers x 6
+   utterances x 1 s made on the host, augmented (`data.augment`) and
+   preprocessed on the card (one K2 decode per wav, 288), its partition
+   holding 64 training stems (192 items with their copies) and 16
+   validation ones; `train` for 3 steps, with its validation at step 0,
+   then a second call that resumes from the step-3 checkpoint to step 5.
+   Each step is timed by CUDA events (the median of steps 1, 2 and 4
+   reported: the first step of a call builds cuDNN's plans), its losses
+   must be finite and its launches show no residual-block call; the
+   validation must show 16 generator calls of 12 residual-block calls
+   each and 16 pitch decodes. Peak memory of each call, one more step
+   under torch.profiler (idle share and the kernels that take the most
+   time), an edit of the main path's features served from the step-5
+   checkpoint (12 residual-block calls), K1 held to its bound at the
+   validation's (batch, frames) and at batch 2 with the zeroed-bias
+   control, K2 on the card's and the CPU's pitch observations of one
+   validation item's audio and a random one (paths equal), one narrow
+   float32 step on the card against the same step on the CPU (losses
+   within 1e-4 relative), and one speaker's adaptation (12 utterances,
+   2 held out, batch 16, ADAPTATION_STEPS 2 from the step-5 checkpoint)
+   through evaluate.datasets(adapt=True), whose generator calls launch
+   12 residual-block calls each.
+16. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
    launches per Block, the time at each number of row tiles per thread
    block, the plain chain's and cuDNN's times and the bound; K2 with the
    forward pass and the backtrace timed apart, microseconds per frame
@@ -420,13 +445,15 @@ def correlation(a, b):
     return float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
 
 
-def device_busy(torch, function):
+def device_busy(torch, function, top=0):
     """Kernels and device time of one function() call under torch.profiler
 
     Returns {'wall_ms', 'kernels', 'device_busy_ms'}: the host time of the
     profiled call (the profiler's own cost included), the count of device
     events (kernels, copies, fills) and the sum of their durations; the
-    last two are None where the profiler recorded no device event.
+    last two are None where the profiler recorded no device event. With
+    `top`, also 'top_kernels': the `top` device events by summed time, as
+    [name, count, ms].
     """
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -438,12 +465,22 @@ def device_busy(torch, function):
         wall = time.perf_counter() - start
     events = [event for event in profile.events()
               if event.device_type == torch.autograd.DeviceType.CUDA]
-    return {
+    result = {
         'wall_ms': wall * 1e3,
         'kernels': len(events) if events else None,
         'device_busy_ms': sum(
             event.time_range.elapsed_us() for event in events) / 1e3
         if events else None}
+    if top:
+        by_name = {}
+        for event in events:
+            entry = by_name.setdefault(event.name[:80], [0, 0.])
+            entry[0] += 1
+            entry[1] += event.time_range.elapsed_us() / 1e3
+        result['top_kernels'] = [
+            [name, count, ms] for name, (count, ms) in sorted(
+                by_name.items(), key=lambda item: -item[1][1])[:top]]
+    return result
 
 
 def timed_call(torch, function, calls=2):
@@ -1428,6 +1465,361 @@ def evaluation_path(torch, port, device, config, pitch_model, ppg_model,
     return launches, k1_error, k2_error
 
 
+# The training corpus: 16 speakers x 6 utterances x 1 s, of which the
+# partition of `data.synthetic.create` keeps four per speaker for
+# training (64 stems, one batch, 192 items with their augmented copies)
+# and one for validation (16 items, DEFAULT_EVALUATION_STEPS)
+TRAIN_CORPUS = dict(speakers=16, utterances=6, seconds=1.0)
+# Adaptation: one speaker of 12 utterances, two held out for its test
+# partition; its train partition (10 stems and their 20 augmented copies)
+# takes batches of 16
+ADAPT_CORPUS = dict(speakers=1, utterances=12, seconds=1.0)
+ADAPT_BATCH_SIZE = 16
+
+
+def train_batch(config, seed, batch=2, frames=8):
+    """A numpy-seeded training batch of `frames` frames"""
+    rng = np.random.default_rng(seed)
+    ppg = rng.random((batch, config.PPG_CHANNELS, frames)).astype(np.float32)
+    bins = config.NUM_FFT // 2 + 1
+    return {
+        'loudness': rng.uniform(-80, 0, (batch, bins, frames)).astype(
+            np.float32),
+        'pitch': rng.uniform(80, 300, (batch, frames)).astype(np.float32),
+        'periodicity': rng.random((batch, frames)).astype(np.float32),
+        'ppg': ppg / ppg.sum(1, keepdims=True),
+        'speakers': np.arange(batch, dtype=np.int32),
+        'spectral_balance_ratios': np.ones(batch, np.float32),
+        'loudness_ratios': np.ones(batch, np.float32),
+        'spectrograms': np.abs(rng.standard_normal(
+            (batch, bins, frames))).astype(np.float32) + 1e-3,
+        'audio': (0.3 * rng.standard_normal(
+            (batch, 1, frames * config.HOPSIZE))).astype(np.float32)}
+
+
+def training_path(torch, port, device, config, pitch_model, ppg_model,
+                  edited):
+    """Phase 15: GAN training at full width on a formant corpus made on
+    the card, its validation through K1 and K2, auto-resume, an edit
+    served from the trained checkpoint, K1 and K2 held to their plain
+    versions at the validation's shapes, one narrow float32 step on the
+    card against the same step on the CPU, and one speaker's adaptation
+    through evaluate.datasets(adapt=True); returns the launch counts of
+    each part and the largest K1 error at batch 1 and K2 state
+    difference of these checks"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    train_core = sys.modules['promonet_tpu_torch.train.core']
+    hopsize = config.HOPSIZE
+    (ROOT / 'build').mkdir(exist_ok=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as directory:
+        directory = Path(directory)
+        checkpoints = directory / 'checkpoints'
+        checkpoint = port.utils.checkpoint
+        checkpoint.save(checkpoints / 'pitch-00000001.pt',
+                        pitch_model.state_dict(), step=1)
+        checkpoint.save(checkpoints / 'ppg-00000002.pt',
+                        ppg_model.state_dict(), step=2)
+        train_config = config.replace(
+            CACHE_DIR=directory / 'cache',
+            PARTITIONS_DIR=directory / 'partitions',
+            AUGMENT_DIR=directory / 'augmentations',
+            RESULTS_DIR=directory / 'results', EVAL_DIR=directory / 'eval',
+            RUNS_DIR=directory / 'runs', CHECKPOINTS_DIR=checkpoints,
+            NUM_WORKERS=8)
+
+        # The corpus, augmented on the host and preprocessed on the card:
+        # one K2 decode per wav, originals and copies
+        reset_launch_counts(resblock, viterbi)
+        start = time.perf_counter()
+        cache = port.data.synthetic.create(
+            'synthetic', **TRAIN_CORPUS, preprocess=False,
+            config=train_config, device=device)
+        synthesized = time.perf_counter() - start
+        port.data.augment.datasets(['synthetic'], train_config)
+        augmented = time.perf_counter() - start - synthesized
+        port.data.preprocess.core.datasets(
+            ['synthetic'], pitch_model=pitch_model, ppg_model=ppg_model,
+            config=train_config, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches['corpus'] = launch_counts(resblock, viterbi)
+        wavs = sorted(cache.glob('*/*.wav'))
+        train_items = len(port.data.Dataset(
+            'synthetic', 'train', train_config))
+        partition = port.load.partition('synthetic', False, train_config)
+        record = dict(
+            phase='training_corpus', seconds=seconds,
+            synthesis_seconds=synthesized, augmentation_seconds=augmented,
+            wavs=len(wavs), train_stems=len(partition['train']),
+            train_items=train_items, valid_stems=len(partition['valid']),
+            launches=launches['corpus'])
+        emit(**record)
+        if len(partition['train']) < train_config.BATCH_SIZE or \
+                len(wavs) != 3 * TRAIN_CORPUS['speakers'] * \
+                TRAIN_CORPUS['utterances'] or \
+                launches['corpus']['viterbi'] != len(wavs):
+            raise AssertionError('the training corpus is wrong')
+
+        # Training, each step timed on the card, its launches counted; the
+        # validation's launches and HiFi-GAN inputs counted apart
+        steps, validations, inputs_seen, captured = [], [], set(), []
+        last = {}
+        original_step = train_core.train_step
+        original_evaluate = train_core.evaluate
+        original_from_audio = port.preprocess.from_audio
+
+        def timed_step(*args, **kwargs):
+            start_event = torch.cuda.Event(enable_timing=True)
+            end_event = torch.cuda.Event(enable_timing=True)
+            start_event.record()
+            metrics = original_step(*args, **kwargs)
+            end_event.record()
+            steps.append({'events': (start_event, end_event)})
+            return metrics
+
+        def callback(step, metrics):
+            torch.cuda.synchronize()
+            now = launch_counts(resblock, viterbi)
+            steps[-1].update(
+                step=step, launches={k: now[k] - last.get(k, 0) for k in now},
+                losses={k: float(v) for k, v in metrics.items()
+                        if k.startswith('loss/')})
+            last.update(now)
+
+        def counted_evaluate(*args, **kwargs):
+            before = launch_counts(resblock, viterbi)
+            calls = [0]
+
+            def hook(module, inputs, output):
+                if isinstance(module, port.models.HiFiGAN):
+                    calls[0] += 1
+                    inputs_seen.add(tuple(inputs[0].shape[:2]))
+
+            handle = torch.nn.modules.module.register_module_forward_hook(
+                hook)
+            start = time.perf_counter()
+            try:
+                original_evaluate(*args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                handle.remove()
+            after = launch_counts(resblock, viterbi)
+            validations.append(dict(
+                seconds=time.perf_counter() - start, generator_calls=calls[0],
+                launches={k: after[k] - before[k] for k in after}))
+            last.update(after)
+
+        def capture(audio, *args, **kwargs):
+            if not captured:
+                captured.append(audio.detach().clone())
+            return original_from_audio(audio, *args, **kwargs)
+
+        run = train_config.RUNS_DIR / train_config.CONFIG
+        train_core.train_step = timed_step
+        train_core.evaluate = counted_evaluate
+        port.preprocess.from_audio = capture
+        try:
+            results = {}
+            for label, stop in (('train', 3), ('resume', 5)):
+                reset_launch_counts(resblock, viterbi)
+                last.clear()
+                first = len(steps)
+                torch.cuda.reset_peak_memory_stats()
+                start = time.perf_counter()
+                state = port.train(
+                    run, 'synthetic', steps=stop, config=train_config,
+                    device=device, callback=callback)
+                torch.cuda.synchronize()
+                results[label] = dict(
+                    seconds=time.perf_counter() - start,
+                    steps=[entry['step'] for entry in steps[first:]],
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        finally:
+            train_core.train_step = original_step
+            train_core.evaluate = original_evaluate
+            port.preprocess.from_audio = original_from_audio
+        step_ms = [
+            entry['events'][0].elapsed_time(entry['events'][1])
+            for entry in steps]
+        # The first step of each call builds cuDNN's plans: not timed
+        timed = [ms for entry, ms in zip(steps, step_ms)
+                 if entry['step'] not in (0, 3)]
+        finite = all(np.isfinite(value) for entry in steps
+                     for value in entry['losses'].values())
+        record = dict(
+            phase='training', batch=train_config.BATCH_SIZE,
+            chunk=train_config.CHUNK_SIZE, precision=train_config.PRECISION,
+            remat=train_config.REMAT,
+            width=train_config.HIFIGAN_UPSAMPLE_INITIAL_SIZE,
+            discriminators=[type(d).__name__ for d in
+                            state.discriminator.discriminators],
+            runs=results, step_ms=step_ms, median_step_ms=float(
+                np.median(timed)),
+            steps_per_second=1e3 / float(np.median(timed)),
+            losses={entry['step']: entry['losses']['loss/generator/total']
+                    for entry in steps},
+            discriminator_losses={
+                entry['step']: entry['losses']['loss/discriminator/total']
+                for entry in steps},
+            finite=finite,
+            step_launches=[entry['launches'] for entry in steps],
+            validations=validations, validation_inputs=sorted(inputs_seen),
+            checkpoints=sorted(path.name for path in run.glob('*.pt')))
+        emit(**record)
+        launches['training_steps'] = [entry['launches'] for entry in steps]
+        launches['validation'] = validations
+        resumed = checkpoint.load(run / 'generator-00000005.pt')
+        items = train_config.DEFAULT_EVALUATION_STEPS
+        if not finite or results['train']['steps'] != [0, 1, 2] or \
+                results['resume']['steps'] != [3, 4] or \
+                resumed['step'] != 5 or resumed['optimizer']['step'] != 5:
+            raise AssertionError('training did not run or resume as it must')
+        if any(entry['launches']['resblock'] for entry in steps):
+            raise AssertionError('a training step launched the block kernel')
+        if len(validations) != 1 or validations[0]['launches'] != {
+                'resblock': 12 * validations[0]['generator_calls'],
+                'viterbi': items, 'viterbi_logfreq': 0} or \
+                validations[0]['generator_calls'] != items:
+            raise AssertionError(f'validation launched {validations}')
+
+        # One profiled step: the card's idle share
+        loader = port.data.loader(
+            'synthetic', 'train', train_config, native=True)
+        batch = train_core.to_device(next(iter(loader)), device)
+        profiled = device_busy(torch, lambda: train_core.train_step(
+            state, batch), top=12)
+        emit(phase='training_profile', profiled_step=profiled,
+             idle_share=idle_share(profiled))
+
+        # An edit served from the trained checkpoint, through K1
+        trained = port.load.generator(
+            run / 'generator-00000005.pt', train_config, device)
+        reset_launch_counts(resblock, viterbi)
+        output = port.synthesize.from_features(
+            *edited, generator=trained, speaker=3, device=device)
+        torch.cuda.synchronize()
+        launches['trained_edit'] = launch_counts(resblock, viterbi)
+        frames = edited[1].shape[-1]
+        record = dict(
+            phase='training_edit', launches=launches['trained_edit'],
+            samples=output.shape[-1], finite=bool(np.isfinite(output).all()))
+        emit(**record)
+        if not record['finite'] or output.shape != (1, frames * hopsize) or \
+                launches['trained_edit']['resblock'] != 12:
+            raise AssertionError('the trained checkpoint does not serve')
+
+        # K1 at every (batch, frames) validation fed it (batches of one,
+        # so without the zeroed-bias control, as phase 14 at batch 1), and
+        # the same stages at batch 2 with the control; K2 on the card's and
+        # the CPU's pitch observations of one validation item's audio and
+        # a random one of that length
+        rng = np.random.default_rng(16)
+        k1_checks = [
+            (frames, channels, KERNEL_SIZES, ((batch, frames), (2, frames)))
+            for batch, bucket in sorted(inputs_seen)
+            for frames, channels in stage_shapes(train_config, bucket)]
+        k1_error = check_blocks(
+            torch, rng, resblock, device, k1_checks, 'training_check')
+        pitch_module = port.preprocess.pitch
+        cpu_pitch = port.preprocess.PitchCNN()
+        cpu_pitch.load_state_dict(
+            {k: v.cpu() for k, v in pitch_model.state_dict().items()})
+        cpu_pitch.eval()
+        waveform = captured[0].reshape(1, -1)
+        with torch.inference_mode():
+            observations = [
+                torch.log_softmax(pitch_module.cnn_posteriorgram(
+                    model, waveform.to(where), hopsize).float(), -1).cpu()
+                for model, where in ((pitch_model, device),
+                                     (cpu_pitch, 'cpu'))]
+        transition = viterbi.triangular_transition(
+            pitch_module.CANDIDATES, pitch_module.TRANSITION_WIDTH).to(device)
+        initial = torch.full(
+            (pitch_module.CANDIDATES,),
+            -float(np.log(np.float32(pitch_module.CANDIDATES))),
+            device=device)
+        length = observations[0].shape[0]
+        k2_error = check_decodes(viterbi, device, [
+            ('validation_card', observations[0], transition),
+            ('validation_cpu', observations[1], transition),
+            ('validation_random', torch.log_softmax(torch.from_numpy(
+                3 * rng.standard_normal((length, pitch_module.CANDIDATES))
+            ).float(), -1), transition)], initial, 'training_check')
+        emit(phase='training_kernels', validation_inputs=sorted(inputs_seen),
+             k1_checks=sum(len(kernel_sizes) * len(sizes)
+                           for _, _, kernel_sizes, sizes in k1_checks),
+             k1_max_abs_err_at_batch_1=k1_error,
+             k2_frames=length, k2_max_state_difference=k2_error)
+
+        # One narrow float32 step on the card against the same step on the
+        # CPU, from the same seeded state
+        narrow = config.replace(
+            HIFIGAN_UPSAMPLE_INITIAL_SIZE=32, CHUNK_SIZE=2048, BATCH_SIZE=2,
+            PRECISION='float32')
+        narrow_batch = train_batch(narrow, 17)
+        metrics = {}
+        for where in ('cpu', device):
+            narrow_state = train_core.create_state(narrow, where)
+            metrics[str(where)] = {
+                name: float(value) for name, value in train_core.train_step(
+                    narrow_state, train_core.to_device(
+                        narrow_batch, torch.device(where))).items()}
+        card, cpu = metrics[str(device)], metrics['cpu']
+        relative = {
+            name: abs(card[name] - value) / max(abs(value), 1e-12)
+            for name, value in cpu.items() if name.startswith('loss/')}
+        worst = max(relative, key=relative.get)
+        emit(phase='training_reference', losses_card=card, losses_cpu=cpu,
+             max_relative_difference=relative[worst], worst=worst)
+        if relative[worst] > 1e-4:
+            raise AssertionError('the card trains otherwise than the CPU')
+
+        # One speaker's adaptation: ADAPTATION_STEPS 2 from the trained
+        # checkpoint (step 5), then its test-adapt stems evaluated
+        adapt_config = train_config.replace(
+            BATCH_SIZE=ADAPT_BATCH_SIZE, STEPS=5, ADAPTATION_STEPS=2)
+        port.data.synthetic.create(
+            'adaptation', **ADAPT_CORPUS, preprocess=False,
+            config=adapt_config, device=device)
+        port.data.augment.datasets(['adaptation'], adapt_config)
+        port.data.preprocess.core.datasets(
+            ['adaptation'], pitch_model=pitch_model, ppg_model=ppg_model,
+            config=adapt_config, device=device)
+        port.partition.adaptation_partitions('adaptation', 2, adapt_config)
+        phases, adapt_inputs, restore = counted_phases(torch, port)
+        try:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            adapted = port.evaluate.datasets(
+                ['adaptation'], checkpoint=run / 'generator-00000005.pt',
+                adapt=True, config=adapt_config, device=device)['adaptation']
+            torch.cuda.synchronize()
+            adapt_seconds = time.perf_counter() - start
+        finally:
+            restore()
+        launches['adaptation'] = phases
+        adapted_run = (adapt_config.RUNS_DIR / adapt_config.CONFIG / 'adapt' /
+                       'adaptation' / '00')
+        payload = checkpoint.load(adapted_run / 'generator-00000007.pt')
+        objective = adapted['objective']
+        record = dict(
+            phase='adaptation', seconds=adapt_seconds,
+            speakers=sorted(adapted['speakers']), conditions=sorted(objective),
+            run=sorted(path.name for path in adapted_run.glob('*.pt')),
+            step=payload['step'], launches=phases,
+            benchmark=adapted['benchmark'],
+            objective_reconstructed=objective['reconstructed'])
+        emit(**record)
+        if record['speakers'] != ['00'] or payload['step'] != 7 or \
+                len(objective) != 1 + 5 * len(config.EVALUATION_RATIOS) or \
+                not np.isfinite(objective['reconstructed']['ppg']) or any(
+                    counts['resblock'] != 12 * counts['generator_calls']
+                    for counts in phases.values()):
+            raise AssertionError('the adaptation is wrong')
+    return launches, k1_error, k2_error
+
+
 def main():
     try:
         import torch
@@ -1869,7 +2261,14 @@ def main():
     k1_error = max(k1_error, k1_evaluation_error)
     k2_error = max(k2_error, k2_evaluation_error)
 
-    # 15. Kernel times at the main path's shapes
+    # 15. The training path
+    path_launches['training'], k1_training_error, k2_training_error = \
+        training_path(torch, port, device, config, pitch_model, ppg_model,
+                      edited_main)
+    k1_error = max(k1_error, k1_training_error)
+    k2_error = max(k2_error, k2_training_error)
+
+    # 16. Kernel times at the main path's shapes
     k1 = dict(ms=0., plain_ms=0., library_ms=0., bound_ms=0.)
     bound_by_kind = {'operations': 0., 'bytes': 0.}
     for frames, channels in shapes:

@@ -15,7 +15,11 @@ write the JAX package's files, the spectrogram-only baseline
 (`evaluate.datasets` over the formant-synthesis corpus of
 `data.synthetic`, the partitions of `partition` and `data.Dataset`), and
 the command line (`python -m
-promonet_tpu_torch.{preprocess,edit,synthesize,evaluate}`). Each Pallas kernel of
+promonet_tpu_torch.{preprocess,edit,synthesize,evaluate}`), and GAN
+training and speaker adaptation (`train`, `models.Discriminator`,
+`loss`, the chunked `data.Dataset` path, `data.loader`, `data.augment`,
+`adapt.speaker`, `evaluate.datasets(adapt=True)`, `python -m
+promonet_tpu_torch.{train,adapt}`). Each Pallas kernel of
 the JAX package is a hand-written CUDA kernel here (`csrc/`), beside a
 plain PyTorch version that serves CPU tensors. Entry points run on the
 GPU unless called with device='cpu'.
@@ -39,4 +43,6 @@ from . import preprocess
 from . import synthesize
 from . import baseline
 from . import evaluate
+from .train import loss, train
+from . import adapt
 from . import utils

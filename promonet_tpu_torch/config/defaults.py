@@ -71,8 +71,14 @@ WINDOW_SIZE = 1024
 AUGMENT_LOUDNESS = True
 AUGMENT_PITCH = True
 
-# Evaluate per-speaker adaptation partitions (needs training, not ported)
+# Evaluate per-speaker adaptation partitions: each held-out speaker's
+# train-adapt partition fine-tunes the generator before its test-adapt
+# utterances are scored
 ADAPTATION = False
+
+# Log-uniform range of the augmentation ratios (`data.augment`)
+AUGMENTATION_RATIO_MAX = 2.
+AUGMENTATION_RATIO_MIN = .5
 
 # The published datasets
 DATASETS = ['daps', 'libritts', 'vctk']
@@ -129,6 +135,10 @@ VOICING_THRESHOLD = .1625
 # Speaker count of the formant-synthesis corpus
 SYNTHETIC_SPEAKERS = 24
 
+# Condition a zero-shot generator in training on another utterance of the
+# same speaker
+ZERO_SHOT_SHUFFLE = False
+
 
 ###############################################################################
 # Directories
@@ -142,9 +152,11 @@ ASSETS_DIR = Path(__file__).parent.parent.parent / 'promonet_tpu' / 'assets'
 # encoder (`<name>-<step:08d>.pt`, written by scripts/convert_checkpoints.py)
 CHECKPOINTS_DIR = Path(__file__).parent.parent.parent / 'checkpoints_torch'
 
-# Training runs; a generator without a checkpoint comes from
-# RUNS_DIR / CONFIG (`load.generator`)
-RUNS_DIR = Path(__file__).parent.parent.parent / 'runs'
+# The port's training runs: checkpoints and metrics.jsonl under
+# RUNS_DIR / CONFIG (`python -m promonet_tpu_torch.train`), adaptation
+# runs beside them; a generator without a checkpoint comes from
+# RUNS_DIR / CONFIG (`load.generator`). Not the JAX package's `runs/`.
+RUNS_DIR = Path(__file__).parent.parent.parent / 'runs_torch'
 
 # Preprocessed datasets: <dataset>/<speaker>/<utterance>-100.wav and its
 # feature files (the JAX package's layout and location, so a corpus made
@@ -161,8 +173,10 @@ EVAL_DIR = _data / 'eval'
 # Evaluation results: <CONFIG>/<dataset>/results.json
 RESULTS_DIR = _data / 'results'
 
-# Augmentation ratio files of the JAX package, read only
-AUGMENT_DIR = ASSETS_DIR / 'augmentations'
+# The port's augmentation ratio files, <dataset>-{pitch,loudness}.json
+# (`data.augment`); a dataset without one here takes the JAX package's
+# shipped file under ASSETS_DIR / 'augmentations', read only
+AUGMENT_DIR = _data / 'augmentations'
 
 
 ###############################################################################
@@ -257,3 +271,122 @@ PITCH_ESTIMATOR = 'cnn'
 # Edit ratios of the evaluation's shifted, stretched, scaled, balance and
 # loudness conditions
 EVALUATION_RATIOS = [.717, 1.414]
+
+
+###############################################################################
+# Discriminators
+###############################################################################
+
+
+# RVQGAN-style complex multi-band STFT discriminator
+COMPLEX_MULTIBAND_DISCRIMINATOR = True
+
+# HiFi-GAN multi-period waveform discriminator
+MULTI_PERIOD_DISCRIMINATOR = True
+
+# UnivNet multi-resolution magnitude-STFT discriminator
+MULTI_RESOLUTION_DISCRIMINATOR = False
+
+# MelGAN multi-scale waveform discriminator
+MULTI_SCALE_DISCRIMINATOR = False
+
+# FARGAN's own spectral discriminator
+FARGAN_DISCRIMINATOR = False
+
+
+###############################################################################
+# Logging
+###############################################################################
+
+
+# Checkpoint cadence
+CHECKPOINT_INTERVAL = 20000  # steps
+
+# Validation and metrics cadence
+EVALUATION_INTERVAL = 2500  # steps
+
+# Validation items per evaluation pass
+DEFAULT_EVALUATION_STEPS = 16
+
+# Validation items whose audio is logged (TensorBoard) per pass
+PLOT_EXAMPLES = 10
+
+
+###############################################################################
+# Losses
+###############################################################################
+
+
+# Hinge adversarial objective instead of least-squares
+ADVERSARIAL_HINGE_LOSS = False
+
+# Generator starts receiving adversarial gradient at this step
+ADVERSARIAL_LOSS_START_STEP = 0
+
+# Scale on the adversarial term
+ADVERSARIAL_LOSS_WEIGHT = 1.
+
+# Discriminator optimization begins at this step
+DISCRIMINATOR_START_STEP = 0
+
+# Scale on the feature-matching term
+FEATURE_MATCHING_LOSS_WEIGHT = 1.
+
+# Drop each discriminator's first activation from feature matching
+FEATURE_MATCHING_OMIT_FIRST = False
+
+# L1 log-mel reconstruction term
+MEL_LOSS = True
+
+# Scale on the mel term
+MEL_LOSS_WEIGHT = 45.
+
+# Normalized-correlation loss directly on waveforms
+SIGNAL_LOSS = False
+
+# Scale on the signal term
+SIGNAL_LOSS_WEIGHT = .03
+
+# Zero-floor the mels inside the mel loss
+SPARSE_MEL_LOSS = False
+
+# Multi-resolution spectral convergence term
+SPECTRAL_CONVERGENCE_LOSS = False
+
+
+###############################################################################
+# Training
+###############################################################################
+
+
+# Batch size of a training step
+BATCH_SIZE = 64
+
+# Samples per training example (random crop; reflect-pad if short)
+CHUNK_SIZE = 16384  # samples
+
+# Inf-norm clip on generator gradients; None disables
+GRADIENT_CLIP_GENERATOR = None
+
+# Optimization budget
+STEPS = 800000
+
+# Additional steps when adapting to a new speaker
+ADAPTATION_STEPS = 10000
+
+# Threads of the host data loader
+NUM_WORKERS = 10
+
+# Optimizer of both models: torch.optim.AdamW with the JAX package's
+# optax settings (decoupled weight decay scaled by the learning rate)
+OPTIMIZER = {
+    'name': 'adamw',
+    'lr': 2e-4,
+    'b1': .8,
+    'b2': .99,
+    'eps': 1e-9,
+    'weight_decay': 1e-2}
+
+# Recompute each residual Block's and each discriminator's activations in
+# the backward pass (torch.utils.checkpoint)
+REMAT = True

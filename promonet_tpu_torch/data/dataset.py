@@ -1,12 +1,16 @@
 """Dataset over the preprocessed feature cache
 
-Counterpart of `promonet_tpu/data/dataset.py`, without its chunked
-training path (`random_chunk`, the native wav decoder): the same cache
-layout (config.CACHE_DIR / <dataset> / <speaker> / <utterance>-100[-aug]
-plus one file per feature), the partition's stems with the augmented
-variants of training partitions, the mains-hum stem filter, the speaker
-map, and whole utterances from `load_item`. Loudness-augmented stems
-reuse the original's loudness, as in the JAX package.
+Counterpart of `promonet_tpu/data/dataset.py`: the same cache layout
+(config.CACHE_DIR / <dataset> / <speaker> / <utterance>-100[-aug] plus one
+file per feature), the partition's stems with the augmented variants of
+training partitions, the mains-hum stem filter, the speaker map, whole
+utterances from `load_item`, and the training path: `load_item(index,
+chunk_rng)` crops CHUNK_SIZE samples and their frames at a start drawn
+from `chunk_rng`, reading only that window of the features (memory-mapped)
+and of the wav (the native decoder, `data.native`, or its plain version),
+and reflect-pads an utterance shorter than a chunk (`random_chunk`).
+Loudness-augmented stems reuse the original's loudness, as in the JAX
+package.
 """
 import json
 
@@ -14,6 +18,18 @@ import numpy as np
 
 from .. import config as config_module
 from .. import load
+from . import native as native_module
+
+
+def _windowed_load(file, window):
+    """The trailing-axis window of an .npy, read memory-mapped"""
+    return np.asarray(np.load(file, mmap_mode='r')[..., window], np.float32)
+
+
+def _frames_of(file):
+    """Trailing-axis length of an .npy, from its header (the data is
+    mapped, not read)"""
+    return np.load(file, mmap_mode='r').shape[-1]
 
 
 class Dataset:
@@ -24,10 +40,14 @@ class Dataset:
         partition: a key of its partition file (`load.partition`);
             '*-adapt-*' partitions are read from the adaptation file
         config: a `config.Config`; None reads the environment's
+        native: crop training audio with the native decoder
+            (`data.native.wav_chunk`, built at first use) instead of its
+            plain version
     """
 
-    def __init__(self, name, partition, config=None):
+    def __init__(self, name, partition, config=None, native=False):
         self.config = config_module.default() if config is None else config
+        self.native = native
         self.name = name
         self.partition = partition
         self.cache = self.config.CACHE_DIR / name
@@ -49,13 +69,13 @@ class Dataset:
 
     def _augmented_stems(self, stem):
         """The augmented variants of a stem in the ratio files
-        (config.AUGMENT_DIR / '<dataset>-{pitch,loudness}.json')"""
+        (`ratio_file`)"""
         stems = []
         for kind, prefix, enabled in (
             ('pitch', 'p', self.config.AUGMENT_PITCH),
             ('loudness', 'l', self.config.AUGMENT_LOUDNESS)
         ):
-            file = self.config.AUGMENT_DIR / f'{self.name}-{kind}.json'
+            file = ratio_file(self.name, kind, self.config)
             if not enabled or not file.exists():
                 continue
             with open(file) as handle:
@@ -78,14 +98,23 @@ class Dataset:
     def __getitem__(self, index):
         return self.load_item(index)
 
-    def load_item(self, index):
-        """One whole utterance as a dict of numpy arrays and its text
+    def load_item(self, index, chunk_rng=None):
+        """One utterance as a dict of numpy arrays and its text
 
         Keys: text, loudness (n_freq, T), pitch (T,), periodicity (T,), ppg
         (PPG_CHANNELS, T), speakers (an int id, or under ZERO_SHOT the
         stem's x-vector), spectral_balance_ratios, loudness_ratios,
         spectrograms (n_freq, T), stems and audio (1, samples).
+
+        With `chunk_rng` (a numpy Generator) the item is a training crop
+        of CHUNK_SIZE samples and CHUNK_SIZE // HOPSIZE frames: its start
+        frame is chunk_rng.integers(0, T - frames + 1), the draw the JAX
+        package makes, and only that window is read. An utterance shorter
+        than the chunk is read whole and reflect-padded (`random_chunk`).
+        Under ZERO_SHOT_SHUFFLE the x-vector is then that of another
+        utterance of the speaker, drawn from `chunk_rng` as well.
         """
+        config = self.config
         stem = self.stems[index]
         cache = self.cache
         pitch = load.array(cache / f'{stem}{self.viterbi}-pitch.npy')
@@ -93,11 +122,26 @@ class Dataset:
             cache / f'{stem}{self.viterbi}-periodicity.npy')
         base, ratio_pitch, ratio_loudness = self._parse_ratios(stem)
         loudness_stem = base if ratio_loudness != 1. else stem
-        frames = pitch.shape[-1]
-        ppg = load.array(cache / f'{stem}-ppg.npy')
-        if ppg.shape[-1] != frames:
+
+        frames = config.CHUNK_SIZE // config.HOPSIZE
+        total_frames = pitch.shape[-1]
+        windowed = chunk_rng is not None and total_frames >= frames
+        if windowed:
+            start_frame = int(
+                chunk_rng.integers(0, total_frames - frames + 1))
+            window = slice(start_frame, start_frame + frames)
+        else:
+            window = slice(None)
+
+        ppg_file = cache / f'{stem}-ppg.npy'
+        if _frames_of(ppg_file) == total_frames:
+            ppg = _windowed_load(ppg_file, window)
+        else:
             ppg = load.ppg(
-                cache / f'{stem}-ppg.npy', frames, self.config, 'cpu').numpy()
+                ppg_file, total_frames, config, 'cpu').numpy()[..., window]
+        if windowed:
+            pitch = pitch[..., window]
+            periodicity = periodicity[..., window]
 
         text_file = cache / f'{base.split("-")[0]}.txt'
         if not text_file.exists():
@@ -105,28 +149,46 @@ class Dataset:
         text = load.text(text_file) if text_file.exists() else ''
 
         speaker_dir = stem.split('/')[0]
-        if self.config.ZERO_SHOT:
-            speaker = load.array(cache / f'{stem}-speaker.npy')
+        if config.ZERO_SHOT:
+            speaker_stem = stem
+            if config.ZERO_SHOT_SHUFFLE and chunk_rng is not None:
+                candidates = [
+                    other for other in self.stems
+                    if other.split('/')[0] == speaker_dir and other != stem]
+                if candidates:
+                    speaker_stem = candidates[
+                        int(chunk_rng.integers(0, len(candidates)))]
+            speaker = load.array(cache / f'{speaker_stem}-speaker.npy')
         else:
             speaker = np.asarray(
                 self.speaker_index.get(speaker_dir, 0), np.int32)
 
-        return {
+        item = {
             'text': text,
-            'loudness': np.asarray(
-                load.array(cache / f'{loudness_stem}-loudness.npy'),
-                np.float32),
+            'loudness': _windowed_load(
+                cache / f'{loudness_stem}-loudness.npy', window),
             'pitch': np.asarray(pitch, np.float32).reshape(-1),
             'periodicity': np.asarray(periodicity, np.float32).reshape(-1),
             'ppg': np.asarray(ppg, np.float32),
             'speakers': speaker,
             'spectral_balance_ratios': np.asarray(ratio_pitch, np.float32),
             'loudness_ratios': np.asarray(ratio_loudness, np.float32),
-            'spectrograms': np.asarray(
-                load.array(cache / f'{stem}-spectrogram.npy'), np.float32),
-            'stems': stem,
-            'audio': np.asarray(
-                load.audio(cache / f'{stem}.wav', self.config), np.float32)}
+            'spectrograms': _windowed_load(
+                cache / f'{stem}-spectrogram.npy', window),
+            'stems': stem}
+
+        wav = cache / f'{stem}.wav'
+        if not windowed:
+            item['audio'] = np.asarray(load.audio(wav, config), np.float32)
+            if chunk_rng is None:
+                return item
+            return random_chunk(item, chunk_rng, config)
+        start = start_frame * config.HOPSIZE
+        chunk = (
+            native_module.wav_chunk if self.native
+            else native_module.wav_chunk_plain)
+        item['audio'] = chunk(wav, start, config.CHUNK_SIZE)[None]
+        return item
 
     @staticmethod
     def _parse_ratios(stem):
@@ -146,3 +208,50 @@ class Dataset:
             else:
                 base_parts.append(part)
         return '-'.join(base_parts), pitch_ratio, loudness_ratio
+
+
+def ratio_file(name, kind, config):
+    """The augmentation ratios of a dataset, '<name>-<kind>.json': the
+    port's (config.AUGMENT_DIR, written by `data.augment`) where there is
+    one, else the JAX package's shipped file (config.ASSETS_DIR /
+    'augmentations'), which is only read"""
+    file = config.AUGMENT_DIR / f'{name}-{kind}.json'
+    if file.exists():
+        return file
+    return config.ASSETS_DIR / 'augmentations' / f'{name}-{kind}.json'
+
+
+def random_chunk(item, rng, config):
+    """An item cropped to CHUNK_SIZE samples and the matching frames
+
+    An item shorter than the chunk keeps its whole frames and is
+    reflect-padded at the end to the chunk; else the start frame is
+    rng.integers(0, T - frames + 1).
+    """
+    hopsize = config.HOPSIZE
+    chunk = config.CHUNK_SIZE
+    frames = chunk // hopsize
+    audio = item['audio']
+    total_frames = audio.shape[-1] // hopsize
+    item = dict(item)
+
+    if total_frames < frames:
+        def pad(x, amount):
+            return np.pad(
+                x, [(0, 0)] * (x.ndim - 1) + [(0, amount)], mode='reflect')
+
+        item['audio'] = pad(
+            audio[..., :total_frames * hopsize],
+            chunk - total_frames * hopsize)
+        for key in ('loudness', 'ppg', 'spectrograms', 'pitch',
+                    'periodicity'):
+            item[key] = pad(
+                item[key][..., :total_frames], frames - total_frames)
+        return item
+
+    start_frame = int(rng.integers(0, total_frames - frames + 1))
+    start = start_frame * hopsize
+    item['audio'] = audio[..., start:start + chunk]
+    for key in ('loudness', 'ppg', 'spectrograms', 'pitch', 'periodicity'):
+        item[key] = item[key][..., start_frame:start_frame + frames]
+    return item

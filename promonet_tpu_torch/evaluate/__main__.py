@@ -3,13 +3,12 @@
 Counterpart of `python -m promonet_tpu.evaluate`, with its arguments:
 
     python -m promonet_tpu_torch.evaluate [--datasets synthetic ...] \
-        [--checkpoint generator.pt] [--max_stems N] [--config ...] \
-        [--gpu N]
+        [--checkpoint generator.pt] [--max_stems N] [--adapt] \
+        [--config ...] [--gpu N]
 
 Results go to config.RESULTS_DIR, artefacts to config.EVAL_DIR
-(`evaluate.datasets`). `--gpu -1` runs on the CPU. `--adapt` is refused
-with exit code 2: adaptation trains a generator per speaker, and training
-is not ported yet.
+(`evaluate.datasets`). `--gpu -1` runs on the CPU. `--adapt` adapts the
+generator to each speaker of the dataset's adaptation partition first.
 """
 from pathlib import Path
 
@@ -31,15 +30,9 @@ def parse_args():
         help='Evaluate at most this many utterances per speaker')
     parser.add_argument(
         '--adapt', action='store_true',
-        help='Not available: adaptation trains a generator per speaker, '
-             'and training is not ported yet')
-    args = parser.parse_args()
-    if args.adapt:
-        parser.error(
-            '--adapt trains a generator per speaker; training is not '
-            'ported yet (ROADMAP.md §1 item 3)')
-    del args.adapt
-    return args
+        help='Adapt the generator to each speaker of the adaptation '
+             'partition before evaluating it')
+    return parser.parse_args()
 
 
 if __name__ == '__main__':

@@ -1,7 +1,7 @@
 """Objective evaluation and its benchmark
 
-Counterpart of `promonet_tpu/evaluate/core.py`, without adaptation. For
-each test speaker of a dataset and each edit condition (reconstruction;
+Counterpart of `promonet_tpu/evaluate/core.py`. For each test speaker of
+a dataset and each edit condition (reconstruction;
 pitch shift, time stretch, loudness scale, spectral balance and loudness
 ratio at each of config.EVALUATION_RATIOS), the generated audio is
 preprocessed again and scored against the edited features (`Metrics`).
@@ -10,6 +10,13 @@ Artefacts follow the JAX package's layout:
     config.EVAL_DIR/objective/<condition>/<dataset>-<speaker>-<utterance>-<condition>-<feature>.npy
     config.EVAL_DIR/subjective/<condition>/<dataset>-<speaker>-<utterance>-<condition>.wav
     config.RESULTS_DIR/<CONFIG>/<dataset>/{results,<speaker>}.json
+
+With adaptation (`adapt`), the speakers are those of the dataset's
+adaptation partition: each speaker's `train-adapt-NN` partition first
+fine-tunes the base generator (`train`, ADAPTATION_STEPS more steps, in
+config.RUNS_DIR / CONFIG / 'adapt' / <dataset> / NN; a run that has a
+checkpoint is not trained again), then its `test-adapt-NN` utterances
+are scored with that generator as its speaker 0.
 
 What sets the numbers is reproduced from the JAX package:
 - the run's bucket ladder: the bucket of the longest utterance and the
@@ -45,6 +52,7 @@ from ..baseline import mels as mels_baseline
 from ..data import Dataset, bucket_frames
 from ..preprocess import text as text_module
 from ..utils import audio as audio_module
+from ..utils import checkpoint as checkpoint_module
 from ..utils import cli
 from ..utils.timer import Timer
 from .metrics import Metrics
@@ -73,8 +81,8 @@ def datasets(
         gpu: a GPU index as the command line takes it (`utils.cli`),
             overriding `device`; -1 is the CPU
         max_stems: evaluate at most this many utterances per speaker
-        adapt: per-speaker adaptation; needs training, which is not
-            ported (None takes config.ADAPTATION)
+        adapt: adapt the generator to each speaker of the adaptation
+            partition first (None takes config.ADAPTATION)
         config: a `config.Config`; None reads the environment's
         device: where to run; 'cuda' raises on a host without a card
 
@@ -90,10 +98,6 @@ def datasets(
         datasets = [config.TRAINING_DATASET]
     if adapt is None:
         adapt = config.ADAPTATION
-    if adapt:
-        raise NotImplementedError(
-            'Adaptation-mode evaluation trains a generator per speaker; '
-            'training is not ported yet (ROADMAP.md §1 item 3)')
     if config.MODEL == 'world':
         raise NotImplementedError(
             'The WORLD baseline (baseline/world.py) is not ported yet '
@@ -101,9 +105,13 @@ def datasets(
 
     aggregate = {}
     for name in datasets:
-        stems_by_speaker = {}
-        for stem in load.partition(name, False, config)['test']:
-            stems_by_speaker.setdefault(stem.split('/')[0], []).append(stem)
+        if adapt:
+            stems_by_speaker = _adaptation_speakers(name, config)
+        else:
+            stems_by_speaker = {}
+            for stem in load.partition(name, False, config)['test']:
+                stems_by_speaker.setdefault(
+                    stem.split('/')[0], []).append(stem)
         if max_stems is not None:
             stems_by_speaker = {
                 speaker_id: stems[:max_stems]
@@ -112,13 +120,22 @@ def datasets(
             _coarse_bucket_ladder(name, stems_by_speaker, config)))
         timer = Timer(device)
         with timer.phase('load'):
-            models = _models(checkpoint, run_config, device)
+            models = _models(None if adapt else checkpoint, run_config,
+                             device, generator=not adapt)
         include_wer = text_module.available(run_config)
         dataset_metrics = _condition_metrics(include_wer, run_config)
-        speaker_index = Dataset(name, 'test', run_config).speaker_index
+        speaker_index = (
+            {} if adapt else Dataset(name, 'test', run_config).speaker_index)
 
         results = {'num_samples': 0, 'num_frames': 0, 'speakers': {}}
         for speaker_id, stems in stems_by_speaker.items():
+            if adapt:
+                # Adapted generators are single-speaker: speaker 0
+                adapted = _adapt_speaker(
+                    name, speaker_id, checkpoint, run_config, device)
+                with timer.phase('load'):
+                    models = (*models[:2], load.generator(
+                        adapted, run_config, device))
             speaker_results = speaker(
                 name, speaker_id, stems, speaker_index.get(speaker_id, 0),
                 models, dataset_metrics, timer, include_wer, run_config,
@@ -408,15 +425,39 @@ def _condition_metrics(include_wer, config):
         for condition in _conditions(config)}
 
 
-def _models(checkpoint, config, device):
-    """(pitch CNN or None, PPG encoder, generator) of the run"""
+def _models(checkpoint, config, device, generator=True):
+    """(pitch CNN or None, PPG encoder, generator or None) of the run"""
     pitch_model = (
         load.pitch_model(config=config, device=device)
         if config.PITCH_ESTIMATOR == 'cnn' else None)
     return (
         pitch_model,
         load.ppg_model(config=config, device=device),
-        load.generator(checkpoint, config, device))
+        load.generator(checkpoint, config, device) if generator else None)
+
+
+def _adaptation_speakers(name, config):
+    """{speaker id: sorted test stems} of each test-adapt-<id> split"""
+    partition = load.partition(name, True, config)
+    return {
+        key[len('test-adapt-'):]: sorted(partition[key])
+        for key in sorted(partition) if key.startswith('test-adapt-')}
+
+
+def _adapt_speaker(name, speaker_id, base_checkpoint, config, device):
+    """The newest checkpoint of the speaker's adaptation run, which is
+    trained first from `base_checkpoint` where it has none"""
+    from ..train import train
+
+    directory = config.RUNS_DIR / config.CONFIG / 'adapt' / name / speaker_id
+    directory.mkdir(parents=True, exist_ok=True)
+    if checkpoint_module.latest_path(directory) is None:
+        train(
+            directory, dataset=name,
+            train_partition=f'train-adapt-{speaker_id}',
+            valid_partition=f'test-adapt-{speaker_id}',
+            adapt_from=base_checkpoint, config=config, device=device)
+    return checkpoint_module.latest_path(directory)
 
 
 def _coarse_bucket_ladder(dataset, stems_by_speaker, config):

@@ -1,4 +1,5 @@
-from . import bridge, init
+from . import bridge, core, discriminator, init
 from . import fargan, vocos
+from .discriminator import Discriminator
 from .generator import Generator, MelGenerator
 from .hifigan import HiFiGAN

@@ -14,8 +14,17 @@ exactly once: an unmapped or left-over leaf raises.
 
 Only the generator (with any of its backbones and either speaker
 conditioning), the pitch CNN, the PPG encoder and the speaker encoder
-have weights. The harmonics path, the 'dsp' pitch front end and both
-Viterbi decodes have no parameters, so there is no converter for them.
+have weights for inference. The harmonics path, the 'dsp' pitch front
+end and both Viterbi decodes have no parameters, so there is no
+converter for them.
+
+Training (`train_state`) carries the JAX trainer's whole state instead:
+the generator's trainable set with weight norm NOT materialised (each
+`<name>_v` and `<name>_g` in the port's layout, `models.modules.split`),
+the discriminators' (v, g) parameters, and each optax AdamW state as the
+port's optimizer state ({'step', 'exp_avg', 'exp_avg_sq'} by parameter
+name, `train.core`). Moments are laid out as their parameters: the same
+flips and transposes, no norm.
 """
 import numpy as np
 import torch
@@ -28,6 +37,7 @@ class _Leaves:
         if set(tree) == {'params'}:
             tree = tree['params']
         self.leaves = {}
+        self.materialize = True
         self._flatten(tree, ())
 
     def _flatten(self, tree, prefix):
@@ -51,7 +61,7 @@ class _Leaves:
             raise ValueError(
                 f'Unmapped parameters: {sorted(self.leaves)}')
         return {
-            name: torch.from_numpy(np.ascontiguousarray(value))
+            name: torch.from_numpy(np.array(value, order='C'))
             for name, value in state.items()}
 
 
@@ -67,20 +77,40 @@ def _conv(leaves, path):
     return leaves.take(f'{path}/kernel').transpose(2, 1, 0)
 
 
+def _normed(leaves, path, axes, layout):
+    """A weight-normed kernel: the effective weight when materialising,
+    else {'_v': v, '_g': g}; `layout` maps the JAX layout to the port's"""
+    v = leaves.take(f'{path}/kernel_v')
+    g = leaves.take(f'{path}/kernel_g')
+    if leaves.materialize:
+        return layout(weight_norm(v, g, axes))
+    return {'_v': layout(v), '_g': layout(g)}
+
+
+def _put(state, name, kernel):
+    """state[name] = an effective weight, or name_v and name_g = (v, g)"""
+    if isinstance(kernel, dict):
+        for suffix, value in kernel.items():
+            state[f'{name}{suffix}'] = value
+    else:
+        state[name] = kernel
+
+
 def _wn_conv(leaves, path):
-    """Weight-normed stride-1 conv → effective (k, in, out), bias"""
-    kernel = weight_norm(
-        leaves.take(f'{path}/kernel_v'), leaves.take(f'{path}/kernel_g'),
-        (0, 1))
-    return kernel, leaves.take(f'{path}/bias')
+    """Weight-normed stride-1 conv → (k, in, out) kernel (`_normed`),
+    bias"""
+    return (
+        _normed(leaves, path, (0, 1), lambda x: x),
+        leaves.take(f'{path}/bias'))
 
 
 def _wn_conv_transpose(leaves, path):
-    """Weight-normed transposed conv → PyTorch (in, out, k) taps flipped"""
-    kernel = weight_norm(
-        leaves.take(f'{path}/kernel_v'), leaves.take(f'{path}/kernel_g'),
-        (0, 2))
-    return kernel[::-1].transpose(1, 2, 0), leaves.take(f'{path}/bias')
+    """Weight-normed transposed conv → PyTorch (in, out, k) kernel
+    (`_normed`), taps flipped; bias"""
+    return (
+        _normed(leaves, path, (0, 2),
+                lambda x: x[::-1].transpose(1, 2, 0)),
+        leaves.take(f'{path}/bias'))
 
 
 def _dense(leaves, path):
@@ -89,20 +119,20 @@ def _dense(leaves, path):
 
 
 def _wn_dense(leaves, path):
-    """Weight-normed dense layer → effective PyTorch (out, in) weight"""
-    return weight_norm(
-        leaves.take(f'{path}/kernel_v'), leaves.take(f'{path}/kernel_g'),
-        (0,)).T
+    """Weight-normed dense layer → PyTorch (out, in) kernel (`_normed`)"""
+    return _normed(leaves, path, (0,), lambda x: x.T)
 
 
-def generator_state_dict(params):
+def generator_state_dict(params, materialize=True):
     """`promonet_tpu.models.Generator` params → `models.Generator` state
 
     The backbone (HiFi-GAN, FARGAN or Vocos) and the speaker conditioning
     (a learned table, or the zero-shot Dense over x-vectors) are told by
-    their leaves.
+    their leaves. With materialize=False weight norm stays as (v, g): the
+    trainer's trainable set (`models.modules.split`).
     """
     leaves = _Leaves(params)
+    leaves.materialize = materialize
     if leaves.has('speaker_embedding/kernel'):
         state = {
             'speaker_embedding.weight': _dense(leaves, 'speaker_embedding'),
@@ -135,9 +165,9 @@ def _hifigan(leaves):
             f'backbone/MultiReceptiveFieldFusion_{stage}/'
             'WNConvTranspose1d_0/kernel_v'):
         prefix = f'backbone/MultiReceptiveFieldFusion_{stage}'
-        weight, bias = _wn_conv_transpose(
+        parts, bias = _wn_conv_transpose(
             leaves, f'{prefix}/WNConvTranspose1d_0')
-        state[f'backbone.stages.{stage}.upsample.weight'] = weight
+        _put(state, f'backbone.stages.{stage}.upsample.weight', parts)
         state[f'backbone.stages.{stage}.upsample.bias'] = bias
         block = 0
         while leaves.has(
@@ -152,7 +182,12 @@ def _hifigan(leaves):
                     f'{prefix}/ResidualBlock_0/Block_{block}/WNConv1d_{conv}'))
                 conv += 1
             name = f'backbone.stages.{stage}.blocks.{block}'
-            state[f'{name}.weight'] = np.stack([w for w, _ in convs])
+            if leaves.materialize:
+                state[f'{name}.weight'] = np.stack([w for w, _ in convs])
+            else:
+                _put(state, f'{name}.weight', {
+                    suffix: np.stack([parts[suffix] for parts, _ in convs])
+                    for suffix in ('_v', '_g')})
             state[f'{name}.bias'] = np.stack([b for _, b in convs])
             block += 1
         stage += 1
@@ -166,19 +201,19 @@ def _fargan(leaves):
         for i in range(3)}
     network = 'backbone/ScanFrameStep_0/SubframeNetwork_0'
     ours = 'backbone.subframe'
-    state[f'{ours}.fwconv.dense.weight'] = _wn_dense(
-        leaves, f'{network}/FramewiseConv_0/WNDense_0')
-    state[f'{ours}.fwconv.glu.dense.weight'] = _wn_dense(
-        leaves, f'{network}/FramewiseConv_0/GLU_0/WNDense_0')
+    _put(state, f'{ours}.fwconv.dense.weight', _wn_dense(
+        leaves, f'{network}/FramewiseConv_0/WNDense_0'))
+    _put(state, f'{ours}.fwconv.glu.dense.weight', _wn_dense(
+        leaves, f'{network}/FramewiseConv_0/GLU_0/WNDense_0'))
     for i in range(3):
         gru = f'{network}/GRUCellNoBias_{i}'
         state[f'{ours}.grus.{i}.weight_ih'] = _dense(leaves, f'{gru}/Dense_0')
         state[f'{ours}.grus.{i}.weight_hh'] = _dense(leaves, f'{gru}/Dense_1')
-        state[f'{ours}.glus.{i}.dense.weight'] = _wn_dense(
-            leaves, f'{network}/GLU_{i}/WNDense_0')
+        _put(state, f'{ours}.glus.{i}.dense.weight', _wn_dense(
+            leaves, f'{network}/GLU_{i}/WNDense_0'))
     # GLU_3 follows the three GRUs' GLUs: the skip path's
-    state[f'{ours}.skip_glu.dense.weight'] = _wn_dense(
-        leaves, f'{network}/GLU_3/WNDense_0')
+    _put(state, f'{ours}.skip_glu.dense.weight', _wn_dense(
+        leaves, f'{network}/GLU_3/WNDense_0'))
     state[f'{ours}.skip.weight'] = _dense(leaves, f'{network}/Dense_0')
     state[f'{ours}.output.weight'] = _dense(leaves, f'{network}/Dense_1')
     return state
@@ -214,6 +249,79 @@ def _vocos(leaves):
         state[f'{name}.gamma'] = leaves.take(f'{path}/gamma')
         block += 1
     return state
+
+
+def discriminator_state_dict(params):
+    """`promonet_tpu.models.Discriminator` params → `models.Discriminator`
+    state: (v, g) and bias of every convolution, in PyTorch's layouts
+    ((out, in, kh, kw) and (out, in // groups, k))"""
+    leaves = _Leaves(params)
+    state = {}
+    index = 0
+    while leaves.has(f'discriminators_{index}/WNConv2d_0/bias') or \
+            leaves.has(f'discriminators_{index}/WNConv1d_0/bias'):
+        kind = (
+            'WNConv2d' if leaves.has(f'discriminators_{index}/WNConv2d_0/bias')
+            else 'WNConv1d')
+        # (kh, kw, in, out) → (out, in, kh, kw); (k, in, out) → (out, in, k)
+        order = (3, 2, 0, 1) if kind == 'WNConv2d' else (2, 1, 0)
+        conv = 0
+        while leaves.has(f'discriminators_{index}/{kind}_{conv}/bias'):
+            path = f'discriminators_{index}/{kind}_{conv}'
+            name = f'discriminators.{index}.convs.{conv}'
+            for ours, theirs in (('weight_v', 'kernel_v'),
+                                 ('weight_g', 'kernel_g')):
+                state[f'{name}.{ours}'] = leaves.take(
+                    f'{path}/{theirs}').transpose(order)
+            state[f'{name}.bias'] = leaves.take(f'{path}/bias')
+            conv += 1
+        index += 1
+    return leaves.finish(state)
+
+
+def _adam(opt_state):
+    """The ScaleByAdamState (count, mu, nu) of an optax AdamW state"""
+    if hasattr(opt_state, 'mu') and hasattr(opt_state, 'nu'):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam(part)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state(opt_state, convert):
+    """An optax AdamW state → the port's optimizer state {'step',
+    'exp_avg', 'exp_avg_sq'}, the moments laid out by `convert` (a
+    params-tree converter of this module)"""
+    adam = _adam(opt_state)
+    if adam is None:
+        raise ValueError('No Adam moments in the optimizer state')
+    return {
+        'step': int(np.asarray(adam.count)),
+        'exp_avg': convert(adam.mu),
+        'exp_avg_sq': convert(adam.nu)}
+
+
+def train_state(state):
+    """The JAX trainer's state (`promonet_tpu.train.create_state`, as
+    numpy) → {'generator': {'trainable', 'optimizer'}, 'discriminator':
+    {'params', 'optimizer'}} of the port's trainer"""
+    def trainable(tree):
+        return generator_state_dict(tree, materialize=False)
+
+    return {
+        'generator': {
+            'trainable': trainable(state['generator']['params']),
+            'optimizer': optimizer_state(
+                state['generator']['opt_state'], trainable)},
+        'discriminator': {
+            'params': discriminator_state_dict(
+                state['discriminator']['params']),
+            'optimizer': optimizer_state(
+                state['discriminator']['opt_state'],
+                discriminator_state_dict)}}
 
 
 def _conv_norm_stack(leaves, layers):

@@ -68,11 +68,11 @@ class GRUCellNoBias(nn.Module):
 
 
 class GLU(nn.Module):
-    """x * sigmoid(Dense(x)), the Dense weight-normed in the JAX package"""
+    """x * sigmoid(Dense(x)), the Dense weight-normed"""
 
     def __init__(self, features):
         super().__init__()
-        self.dense = Dense(features, features)
+        self.dense = Dense(features, features, weight_norm=True)
 
     def forward(self, x, dtype=torch.float32):
         return x * torch.sigmoid(self.dense(x, dtype))
@@ -80,11 +80,11 @@ class GLU(nn.Module):
 
 class FramewiseConv(nn.Module):
     """tanh(Dense([features, state])) through a GLU; the Dense is
-    weight-normed in the JAX package"""
+    weight-normed"""
 
     def __init__(self, in_features, features):
         super().__init__()
-        self.dense = Dense(2 * in_features, features)
+        self.dense = Dense(2 * in_features, features, weight_norm=True)
         self.glu = GLU(features)
 
     def forward(self, features, state, dtype=torch.float32):

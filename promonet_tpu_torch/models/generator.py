@@ -62,7 +62,8 @@ class BaseGenerator(nn.Module):
                     config.HIFIGAN_RESBLOCK_KERNEL_SIZES),
                 resblock_dilation_sizes=tuple(
                     tuple(d) for d in config.HIFIGAN_RESBLOCK_DILATION_SIZES),
-                lrelu_slope=config.LRELU_SLOPE)
+                lrelu_slope=config.LRELU_SLOPE,
+                remat=bool(getattr(config, 'REMAT', False)))
         elif config.MODEL == 'vocos':
             self.backbone = Vocos(
                 num_features,
@@ -106,6 +107,13 @@ class BaseGenerator(nn.Module):
             columns.append(loudness_ratios.float()[:, None, None])
         return torch.cat(columns, dim=-1).to(self.dtype)
 
+    def backbone_forward(self, features, global_features, train):
+        """The backbone's (B, T, 1) audio; `train` as the JAX package
+        passes it: HiFi-GAN's differentiable route, no effect on Vocos"""
+        if self.config.MODEL == 'hifigan':
+            return self.backbone(features, global_features, self.dtype, train)
+        return self.backbone(features, global_features, self.dtype)
+
 
 class Generator(BaseGenerator):
     """Proposed generator over interpretable features"""
@@ -138,7 +146,8 @@ class Generator(BaseGenerator):
         spectral_balance_ratios,
         loudness_ratios,
         initial_states=None,
-        return_states=False
+        return_states=False,
+        train=False
     ):
         """
         Arguments
@@ -154,6 +163,8 @@ class Generator(BaseGenerator):
                 that continues where the last call stopped
                 (`models.fargan.FARGAN.forward`); other backbones ignore
                 them
+            train: the training route (`models.hifigan`): no kernel,
+                differentiable, recomputed under REMAT
 
         Returns
             audio: (B, 1, T * HOPSIZE), float32 [, FARGAN's final carry]
@@ -162,13 +173,17 @@ class Generator(BaseGenerator):
         global_features = self.prepare_global_features(
             speakers, spectral_balance_ratios, loudness_ratios)
         if self.config.MODEL == 'fargan':
+            if train:
+                raise NotImplementedError(
+                    "FARGAN's training route (its additive noise) is not "
+                    'ported (ROADMAP.md §1)')
             out = self.backbone(
                 features, global_features, self.dtype,
                 initial_states=initial_states, return_states=return_states)
             if return_states:
                 return out[0].transpose(1, 2), out[1]
             return out.transpose(1, 2)
-        audio = self.backbone(features, global_features, self.dtype)
+        audio = self.backbone_forward(features, global_features, train)
         return audio.transpose(1, 2)
 
     def prepare_features(self, loudness, pitch, periodicity, ppg):
@@ -234,7 +249,7 @@ class MelGenerator(BaseGenerator):
 
     def forward(
         self, spectrograms, speakers, spectral_balance_ratios,
-        loudness_ratios
+        loudness_ratios, train=False
     ):
         """
         Arguments
@@ -248,8 +263,8 @@ class MelGenerator(BaseGenerator):
         features = self.prepare_features(spectrograms)
         global_features = self.prepare_global_features(
             speakers, spectral_balance_ratios, loudness_ratios)
-        return self.backbone(
-            features, global_features, self.dtype).transpose(1, 2)
+        return self.backbone_forward(
+            features, global_features, train).transpose(1, 2)
 
     def prepare_features(self, spectrograms):
         """Linear spectrogram (B, F, T) → log-mels (B, T, NUM_MELS)"""

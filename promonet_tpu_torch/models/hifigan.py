@@ -3,15 +3,49 @@
 Input conv and speaker-conditioning conv, then four upsampling stages
 (leaky ReLU, transposed conv, average of three dilated residual
 Blocks), then leaky ReLU, output conv and tanh. Activations are
-(B, T, C). The Blocks run through `ops.resblock.fused_block`: the CUDA
-kernel for CUDA tensors at every width and length, the plain chain for
-CPU tensors.
+(B, T, C). At inference (train=False) the Blocks run through
+`ops.resblock.fused_block`: the CUDA kernel for CUDA tensors at every
+width and length, the plain chain for CPU tensors. In training
+(train=True), as in the JAX package, no Block reaches the kernel, which
+has no backward: each runs the differentiable chain of `train_block`
+(cuDNN convolutions on the card), recomputed in the backward pass under
+`torch.utils.checkpoint` when `remat` is set.
 """
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.resblock import fused_block, pack_weights
 from .modules import Conv1d, ConvTranspose1d, leaky_relu
+
+
+def train_block(x, weight, bias, dilations, slope, dtype):
+    """A Block's chain, differentiable: `F.conv1d` in `dtype`
+
+    Rounds where the JAX package's training lowering does: each
+    convolution accumulates in float32 and returns `dtype`, and its bias
+    and the residual are added in `dtype`.
+
+    Arguments
+        x: (B, T, C)
+        weight: (2 * len(dilations), k, C, C) [conv][tap][in][out]
+        bias: (2 * len(dilations), C)
+    """
+    k = weight.shape[1]
+    # (conv, k, in, out) → (conv, out, in, k); activations (B, C, T)
+    weight = weight.to(dtype).permute(0, 3, 2, 1)
+    bias = bias.to(dtype)[:, :, None]
+    x = x.to(dtype).transpose(1, 2)
+    for i, dilation in enumerate(dilations):
+        t = F.conv1d(
+            leaky_relu(x, slope), weight[2 * i],
+            padding=(k - 1) // 2 * dilation, dilation=dilation) + bias[2 * i]
+        t = F.conv1d(
+            leaky_relu(t, slope), weight[2 * i + 1],
+            padding=(k - 1) // 2) + bias[2 * i + 1]
+        x = x + t
+    return x.transpose(1, 2)
 
 
 class Block(nn.Module):
@@ -22,8 +56,11 @@ class Block(nn.Module):
     kernels; conv 2n has dilation dilations[n], conv 2n + 1 dilation 1.
     """
 
-    def __init__(self, channels, kernel_size, dilations, slope):
+    def __init__(self, channels, kernel_size, dilations, slope, remat=False):
         super().__init__()
+        # Each convolution weight-normed per output channel over (k, in)
+        self.norm_axes = (1, 2)
+        self.remat = remat
         self.dilations = tuple(dilations)
         self.slope = slope
         self.fan_in = channels * kernel_size
@@ -47,7 +84,14 @@ class Block(nn.Module):
                 self._packed = (key, pack_weights(self.weight, self.bias))
         return self._packed[1]
 
-    def forward(self, x, dtype=torch.float32):
+    def forward(self, x, dtype=torch.float32, train=False):
+        if train:
+            if self.remat:
+                return torch.utils.checkpoint.checkpoint(
+                    train_block, x, self.weight, self.bias, self.dilations,
+                    self.slope, dtype, use_reentrant=False)
+            return train_block(
+                x, self.weight, self.bias, self.dilations, self.slope, dtype)
         if x.device.type == 'cuda' and dtype == torch.bfloat16:
             return fused_block(
                 x.to(dtype), self.packed(), None, self.dilations, self.slope)
@@ -60,7 +104,8 @@ class Stage(nn.Module):
     """Leaky ReLU → transposed upsample → average of parallel Blocks"""
 
     def __init__(self, in_channels, out_channels, upsample_kernel_size,
-                 upsample_rate, kernel_sizes, dilation_sizes, slope):
+                 upsample_rate, kernel_sizes, dilation_sizes, slope,
+                 remat=False):
         super().__init__()
         self.slope = slope
         self.upsample = ConvTranspose1d(
@@ -68,14 +113,14 @@ class Stage(nn.Module):
             stride=upsample_rate,
             padding=(upsample_kernel_size - upsample_rate) // 2)
         self.blocks = nn.ModuleList(
-            Block(out_channels, kernel_size, dilations, slope)
+            Block(out_channels, kernel_size, dilations, slope, remat)
             for kernel_size, dilations in zip(kernel_sizes, dilation_sizes))
 
-    def forward(self, x, dtype=torch.float32):
+    def forward(self, x, dtype=torch.float32, train=False):
         x = self.upsample(leaky_relu(x, self.slope), dtype)
         total = None
         for block in self.blocks:
-            out = block(x, dtype)
+            out = block(x, dtype, train)
             total = out if total is None else total + out
         return total / len(self.blocks)
 
@@ -92,7 +137,8 @@ class HiFiGAN(nn.Module):
         upsample_rates=(8, 8, 2, 2),
         resblock_kernel_sizes=(3, 7, 11),
         resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-        lrelu_slope=0.1
+        lrelu_slope=0.1,
+        remat=False
     ):
         super().__init__()
         self.slope = lrelu_slope
@@ -103,20 +149,23 @@ class HiFiGAN(nn.Module):
         for kernel_size, rate in zip(upsample_kernel_sizes, upsample_rates):
             stages.append(Stage(
                 channels, channels // 2, kernel_size, rate,
-                resblock_kernel_sizes, resblock_dilation_sizes, lrelu_slope))
+                resblock_kernel_sizes, resblock_dilation_sizes, lrelu_slope,
+                remat))
             channels //= 2
         self.stages = nn.ModuleList(stages)
         self.output_conv = Conv1d(channels, 1, 7, padding=3, bias=False)
 
-    def forward(self, features, global_features, dtype=torch.float32):
+    def forward(self, features, global_features, dtype=torch.float32,
+                train=False):
         """
         Arguments
             features: (B, T, num_features)
             global_features: (B, 1, global_channels)
+            train: the differentiable route (no kernel), see the module
         """
         x = self.input_conv(features, dtype)
         x = x + self.global_conv(global_features, dtype)
         for stage in self.stages:
-            x = stage(x, dtype)
+            x = stage(x, dtype, train)
         x = self.output_conv(leaky_relu(x, self.slope), dtype)
         return torch.tanh(x.float())

@@ -4,7 +4,8 @@ For runs without carried-over weights (the GPU smoke test, benchmarks):
 the initialisation the JAX package gives a fresh model, drawn from
 `numpy.random.default_rng(seed)`. Convolutions and dense layers are
 uniform in ±1/sqrt(fan_in) (PyTorch's default, which the JAX package
-copies; weight norm starts at g = ||v||, so the effective kernel is v),
+copies; weight norm starts at g = ||v||, so the effective kernel is v:
+the discriminators' (v, g) pairs are drawn so),
 embeddings are standard normal and LayerNorms start at (1, 0). FARGAN's
 GRU kernels are uniform in [0, 2/sqrt(H)], as the JAX package draws them.
 Vocos' truncated-normal and FARGAN's orthogonal kernels are drawn like
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from .fargan import GRUCellNoBias
+from .modules import norm
 
 
 def seeded(module, seed):
@@ -37,6 +39,15 @@ def seeded(module, seed):
         elif isinstance(submodule, nn.LayerNorm):
             fill(submodule.weight, np.ones(submodule.weight.shape))
             fill(submodule.bias, np.zeros(submodule.bias.shape))
+        elif hasattr(submodule, 'weight_v'):
+            bound = 1. / np.sqrt(submodule.fan_in)
+            fill(submodule.weight_v,
+                 rng.uniform(-bound, bound, submodule.weight_v.shape))
+            fill(submodule.bias,
+                 rng.uniform(-bound, bound, submodule.bias.shape))
+            with torch.no_grad():
+                submodule.weight_g.copy_(
+                    norm(submodule.weight_v, submodule.norm_axes))
         elif isinstance(submodule, nn.Linear) or hasattr(submodule, 'fan_in'):
             fan_in = getattr(submodule, 'fan_in', None) or \
                 submodule.in_features

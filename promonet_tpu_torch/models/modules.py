@@ -1,11 +1,18 @@
 """Convolution building blocks (counterpart of `models/modules.py`)
 
-Activations are (B, T, C), as in the JAX package. Weights are stored in
-PyTorch's layouts and hold the EFFECTIVE kernel: weight norm is
-materialised once, when weights are carried over (`models/bridge.py`),
-and there are no weight-norm hooks at run time. Each module records
-`fan_in`, the fan-in of PyTorch's default (and the JAX package's)
-uniform initialisation, for `models/init.py`.
+Activations are (B, T, C), as in the JAX package. Weights are stored
+in PyTorch's layouts and hold the EFFECTIVE kernel: there are no
+weight-norm hooks at run time. Each module records `fan_in`, the fan-in
+of PyTorch's default (and the JAX package's) uniform initialisation, for
+`models/init.py`, and a weight-normed one the axes of its norm,
+`norm_axes`.
+
+Weight norm is trained as the JAX package trains it: the trainable set
+holds (v, g) for every weight-normed weight (`split`), and each step
+materialises v * (g / sqrt(sum(v^2) + 1e-12)) over `norm_axes`
+(`materialize`) into a state dict that the module is called with
+(`torch.func.functional_call`). Inference loads that state dict, so the
+kernels serve trained weights unchanged.
 
 Parameters stay float32; a forward pass casts them to its compute dtype,
 accumulates in float32 inside the convolution, rounds to the compute
@@ -64,6 +71,9 @@ class ConvTranspose1d(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, stride,
                  padding):
         super().__init__()
+        # Weight-normed per INPUT channel, over (out, k), as PyTorch's
+        # weight_norm(dim=0) and the JAX package do for transposed convs
+        self.norm_axes = (1, 2)
         self.stride = stride
         self.padding = padding
         self.fan_in = in_channels * kernel_size
@@ -91,8 +101,11 @@ class Dense(nn.Module):
     times per frame.
     """
 
-    def __init__(self, in_features, out_features, bias=False):
+    def __init__(self, in_features, out_features, bias=False,
+                 weight_norm=False):
         super().__init__()
+        # Per output, over the inputs
+        self.norm_axes = (1,) if weight_norm else None
         self.fan_in = in_features
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
@@ -103,6 +116,64 @@ class Dense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
+
+
+###############################################################################
+# Weight norm
+###############################################################################
+
+
+def weight_norm(v, g, axes):
+    """The effective weight v * (g / sqrt(sum(v^2 over axes) + 1e-12)),
+    in the JAX package's order of operations"""
+    return v * (g / norm(v, axes))
+
+
+def norm(weight, axes):
+    """sqrt(sum(weight^2 over axes) + 1e-12), keeping the reduced axes"""
+    return torch.sqrt(
+        torch.sum(torch.square(weight), dim=axes, keepdim=True) + 1e-12)
+
+
+def normed(module):
+    """{parameter name: norm axes} of every weight-normed weight of module"""
+    return {
+        f'{prefix}.weight' if prefix else 'weight': submodule.norm_axes
+        for prefix, submodule in module.named_modules()
+        if getattr(submodule, 'norm_axes', None)}
+
+
+def split(state, axes_by_name):
+    """The trainable set of an effective state dict
+
+    Each weight-normed weight `name` becomes `name_v` = the weight and
+    `name_g` = its norm (`norm`), so that `materialize` gives the weight
+    back (to float32 rounding); this is how the JAX package initialises g,
+    and how a checkpoint of effective weights warm-starts. Every other
+    entry is kept as it is.
+    """
+    trainable = {}
+    for name, value in state.items():
+        if name in axes_by_name:
+            trainable[f'{name}_v'] = value
+            trainable[f'{name}_g'] = norm(value, axes_by_name[name])
+        else:
+            trainable[name] = value
+    return trainable
+
+
+def materialize(trainable, axes_by_name):
+    """The effective state dict of a trainable set (see `split`)"""
+    state = {}
+    for name, value in trainable.items():
+        if name.endswith('_g') and name[:-2] in axes_by_name:
+            continue
+        if name.endswith('_v') and name[:-2] in axes_by_name:
+            name = name[:-2]
+            value = weight_norm(
+                value, trainable[f'{name}_g'], axes_by_name[name])
+        state[name] = value
+    return state
 
 
 def cast(module, name, dtype):

@@ -2,23 +2,45 @@
 from ..ops import mel as mel_ops, stft as stft_ops
 
 
-def from_audio(audio, config):
-    """Magnitude spectrogram of audio (..., 1, T): (..., n_freq, frames)
+def from_audio(
+    audio,
+    config,
+    mels=False,
+    log_dynamic_range_compression_threshold='default'
+):
+    """Magnitude spectrogram of audio (..., 1, T): (..., n_freq, frames),
+    or with `mels` its log-mels (..., NUM_MELS, frames)
 
-    The magnitude is sqrt(|S|^2 + 1e-6), as in the JAX package.
+    The magnitude is sqrt(|S|^2 + 1e-6), as in the JAX package. The
+    threshold floors the log-mels; 'default' takes config's
+    LOG_DYNAMIC_RANGE_COMPRESSION_THRESHOLD, None none.
     """
     audio = stft_ops.reflect_pad(audio, (config.NUM_FFT - config.HOPSIZE) // 2)
     window = stft_ops.hann_window(config.NUM_FFT, device=audio.device)
-    return stft_ops.stft(
+    spectrogram = stft_ops.stft(
         audio[..., 0, :], config.NUM_FFT, config.HOPSIZE, window=window,
         magnitude=True, magnitude_epsilon=1e-6)
+    if mels:
+        return linear_to_mel(
+            spectrogram, config, log_dynamic_range_compression_threshold)
+    return spectrogram
 
 
-def linear_to_mel(spectrogram, config):
-    """Linear spectrogram (..., n_freq, T) to log-mels (..., NUM_MELS, T)"""
+def linear_to_mel(
+    spectrogram,
+    config,
+    log_dynamic_range_compression_threshold='default'
+):
+    """Linear spectrogram (..., n_freq, T) to log-mels (..., NUM_MELS, T)
+
+    The threshold as `from_audio` takes it.
+    """
+    if log_dynamic_range_compression_threshold == 'default':
+        log_dynamic_range_compression_threshold = \
+            config.LOG_DYNAMIC_RANGE_COMPRESSION_THRESHOLD
     return mel_ops.linear_to_mel(
         spectrogram,
         config.SAMPLE_RATE,
         config.NUM_FFT,
         config.NUM_MELS,
-        config.LOG_DYNAMIC_RANGE_COMPRESSION_THRESHOLD)
+        log_dynamic_range_compression_threshold)

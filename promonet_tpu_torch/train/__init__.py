@@ -1,0 +1,12 @@
+from . import loss
+from .core import (
+    State,
+    build_optimizer,
+    create_state,
+    evaluate,
+    example_batch,
+    generator_args,
+    load_checkpoint,
+    save_checkpoint,
+    train,
+    train_step)

@@ -1,0 +1,586 @@
+"""GAN training (counterpart of `promonet_tpu/train/core.py`)
+
+One step, in the JAX package's order: the generator's forward pass runs
+once; the discriminators are updated against its detached output; the
+generator's losses (mel ×MEL_LOSS_WEIGHT, then feature matching and the
+adversarial terms) run through the *updated* discriminators; then the
+generator's gradient max and min, the optional inf-norm clip
+(GRADIENT_CLIP_GENERATOR) and the optimizer step. The discriminators
+start at DISCRIMINATOR_START_STEP, the adversarial terms at
+ADVERSARIAL_LOSS_START_STEP. Models compute in PRECISION (bf16 by
+default) with float32 parameters, gradients and losses; bf16 needs no
+loss scaling.
+
+The generator is trained through its weight norm, as the JAX package
+trains it: the trainer holds the generator's trainable set (each
+weight-normed weight as (v, g), `models.modules.split`), materialises the
+effective weights each step and calls the generator functionally
+(`torch.func.functional_call`) on its training route (`train=True`: no
+residual-block kernel, each Block recomputed in the backward pass under
+REMAT). Validation loads the effective weights into the generator, whose
+inference route serves them with the kernels (K1 on the card), and
+preprocesses its audio again (K2). The discriminators hold their (v, g)
+as parameters.
+
+A run directory holds `generator-<step:08d>.pt` (the effective weights
+as 'params', which `load.generator` and every synthesis path read, beside
+'trainable', 'optimizer', 'step' and 'epoch') and
+`discriminator-<step:08d>.pt` ('params', 'optimizer'), the newest three
+of each and every multiple of 20000 kept, and `metrics.jsonl`. A run
+resumes from its newest readable generator checkpoint; a checkpoint with
+'params' alone (a converted release, or one written before training was
+ported) warm-starts the generator with v = weight and g = its norm,
+keeps its step, and starts the discriminators and both optimizers anew,
+as the JAX package does with a release checkpoint.
+
+Only the host loader feeds the card: the JAX package's device-resident
+data, dispatch fusion, conv lowering, pause and notify hooks are TPU or
+host-service matters and are not ported. The HiFi-GAN and Vocos
+generators train, over interpretable features or (SPECTROGRAM_ONLY, the
+`MelGenerator`) over spectrograms; FARGAN raises (ROADMAP.md §1).
+"""
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from .. import config as config_module
+from .. import data
+from .. import device as device_module
+from .. import load
+from .. import preprocess
+from ..evaluate.metrics import Metrics
+from ..models import Discriminator, Generator, MelGenerator, init
+from ..models.modules import materialize, normed, split
+from ..utils import checkpoint as checkpoint_module
+from ..utils import cli
+from ..utils import log
+from . import loss as loss_module
+
+
+###############################################################################
+# Entry point
+###############################################################################
+
+
+def train(
+    directory,
+    dataset=None,
+    train_partition='train',
+    valid_partition='valid',
+    adapt_from=None,
+    gpu=None,
+    steps=None,
+    config=None,
+    device='cuda',
+    callback=None
+):
+    """Train a generator and its discriminators; returns the `State`
+
+    Arguments
+        directory: the run directory, for checkpoints and metrics.jsonl
+        dataset: the dataset's name under config.CACHE_DIR (None:
+            config.TRAINING_DATASET)
+        train_partition, valid_partition: partition names
+        adapt_from: a generator checkpoint to start from when the run has
+            none (then ADAPTATION_STEPS more steps are taken)
+        gpu: a GPU index as the command line takes it, overriding
+            `device`; -1 is the CPU
+        steps: the step to stop at (None: STEPS, plus ADAPTATION_STEPS
+            when adapting)
+        config: a `config.Config`; None reads the environment's
+        device: where to train; 'cuda' raises on a host without a card
+        callback: called as callback(step, metrics) after each step, the
+            metrics tensors on the device
+    """
+    config = config_module.default() if config is None else config
+    _check_trainable(config)
+    if gpu is not None:
+        device = cli.device(gpu)
+    device = device_module.resolve(device)
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    if dataset is None:
+        dataset = config.TRAINING_DATASET
+    if steps is None:
+        steps = config.STEPS
+        if adapt_from:
+            steps += config.ADAPTATION_STEPS
+
+    train_loader = data.loader(
+        dataset, train_partition, config, native=device.type == 'cuda')
+    if len(train_loader) == 0:
+        # The JAX trainer waits forever for a batch here
+        raise ValueError(
+            f'Partition {train_partition!r} of {dataset!r} has '
+            f'{len(train_loader.dataset)} items, fewer than one batch of '
+            f'BATCH_SIZE = {config.BATCH_SIZE}')
+    valid_loader = data.loader(dataset, valid_partition, config)
+
+    state = create_state(config, device)
+    latest = checkpoint_module.latest_path(directory)
+    source = latest if latest is not None else adapt_from
+    if source is not None:
+        step, epoch = load_checkpoint(state, source)
+    else:
+        step, epoch = 0, 0
+
+    # Validation's feature extractors (K2 decodes the pitch on the card)
+    extractors = (
+        load.pitch_model(config=config, device=device)
+        if config.PITCH_ESTIMATOR == 'cnn' else None,
+        load.ppg_model(config=config, device=device))
+
+    progress_interval = 2000
+    progress_clock, progress_step = time.time(), step
+    done = False
+    while not done:
+        train_loader.sampler.set_epoch(epoch)
+        for batch in train_loader:
+            # Skip examples that are too short
+            if batch['audio'].shape[-1] < config.CHUNK_SIZE:
+                continue
+            metrics = train_step(
+                state, to_device(batch, device),
+                discriminate=step >= config.DISCRIMINATOR_START_STEP,
+                adversarial=step >= config.ADVERSARIAL_LOSS_START_STEP)
+            if callback is not None:
+                callback(step, metrics)
+
+            if step and step % progress_interval == 0:
+                now = time.time()
+                rate = (step - progress_step) / max(now - progress_clock, 1e-9)
+                print(
+                    f'[{time.strftime("%H:%M:%S")}] step {step}/{steps} · '
+                    f'{rate:.1f} steps/s · '
+                    f'eta {(steps - step) / max(rate, 1e-9) / 3600:.2f} h',
+                    flush=True)
+                progress_clock, progress_step = now, step
+
+            if step % config.EVALUATION_INTERVAL == 0:
+                log.update(directory, step, scalars={
+                    name: float(value) for name, value in metrics.items()})
+                evaluate(directory, step, state, valid_loader, extractors)
+
+            if step and step % config.CHECKPOINT_INTERVAL == 0:
+                save_checkpoint(directory, state, step, epoch)
+
+            step += 1
+            if step >= steps:
+                done = True
+                break
+        else:
+            epoch += 1
+
+    save_checkpoint(directory, state, step, epoch)
+    return state
+
+
+def _check_trainable(config):
+    if config.MODEL not in ('hifigan', 'vocos'):
+        raise NotImplementedError(
+            f'Training MODEL={config.MODEL!r} is not ported: the HiFi-GAN '
+            'and Vocos generators train (ROADMAP.md §1)')
+
+
+###############################################################################
+# State
+###############################################################################
+
+
+class State:
+    """What a step changes: the generator's trainable set and optimizer,
+    the discriminators and theirs
+
+    generator: the `models.Generator`, called functionally in training
+        and holding the effective weights for validation
+    normed: {effective weight name: norm axes} of the generator
+    names: the trainable set's names, in the optimizer's order
+    trainable: {name: float32 leaf tensor}, (v, g) for each weight-normed
+        weight (`models.modules.split`)
+    discriminator: the `models.Discriminator`
+    """
+
+    def __init__(self, generator, discriminator, config):
+        self.config = config
+        self.generator = generator.eval()
+        self.normed = normed(generator)
+        self.trainable = {
+            name: value.detach().clone().requires_grad_()
+            for name, value in split(
+                dict(generator.named_parameters()), self.normed).items()}
+        self.names = sorted(self.trainable)
+        self.discriminator = discriminator
+        self.generator_optimizer = build_optimizer(
+            [self.trainable[name] for name in self.names], config)
+        self.discriminator_optimizer = build_optimizer(
+            list(discriminator.parameters()), config)
+
+    def effective(self):
+        """The generator's effective weights, as a state dict"""
+        return materialize(self.trainable, self.normed)
+
+
+def build_optimizer(parameters, config):
+    """The optimizer of config.OPTIMIZER over `parameters`
+
+    'adamw' is `torch.optim.AdamW` with the JAX package's optax settings
+    (decoupled weight decay scaled by the learning rate); 'adam' and
+    'sgd' as there too.
+    """
+    spec = dict(config.OPTIMIZER)
+    name = spec.pop('name', 'adamw')
+    if name == 'adamw':
+        return torch.optim.AdamW(
+            parameters, lr=spec.get('lr', 2e-4),
+            betas=(spec.get('b1', .8), spec.get('b2', .99)),
+            eps=spec.get('eps', 1e-9),
+            weight_decay=spec.get('weight_decay', 1e-2))
+    if name == 'adam':
+        return torch.optim.Adam(
+            parameters, lr=spec.get('lr', 2e-4),
+            betas=(spec.get('b1', .9), spec.get('b2', .999)),
+            eps=spec.get('eps', 1e-8))
+    if name == 'sgd':
+        return torch.optim.SGD(
+            parameters, lr=spec.get('lr', 1e-3),
+            momentum=spec.get('momentum', 0.))
+    raise ValueError(f'Optimizer {name} is not defined')
+
+
+def create_state(config, device, seed=None):
+    """A fresh `State` on `device`: the generator seeded from `seed` (None:
+    RANDOM_SEED) and the discriminators from `seed` + 1 (`models.init`)"""
+    seed = config.RANDOM_SEED if seed is None else seed
+    generator = (MelGenerator if config.SPECTROGRAM_ONLY else Generator)(
+        config)
+    generator = init.seeded(generator, seed).to(device)
+    discriminator = init.seeded(Discriminator(config), seed + 1).to(device)
+    return State(generator, discriminator, config)
+
+
+def example_batch(config, batch_size=1, frames=None):
+    """A zero batch of the training shapes, as numpy"""
+    if frames is None:
+        frames = config.CHUNK_SIZE // config.HOPSIZE
+    num_freqs = config.WINDOW_SIZE // 2 + 1
+    return {
+        'loudness': np.full((batch_size, num_freqs, frames), -60., np.float32),
+        'pitch': np.full((batch_size, frames), 150., np.float32),
+        'periodicity': np.full((batch_size, frames), .5, np.float32),
+        'ppg': np.full(
+            (batch_size, config.PPG_CHANNELS, frames),
+            1. / config.PPG_CHANNELS, np.float32),
+        'speakers': np.zeros((batch_size,), np.int32),
+        'spectral_balance_ratios': np.ones((batch_size,), np.float32),
+        'loudness_ratios': np.ones((batch_size,), np.float32),
+        'spectrograms': np.full(
+            (batch_size, num_freqs, frames), 1e-3, np.float32),
+        'audio': np.zeros(
+            (batch_size, 1, frames * config.HOPSIZE), np.float32)}
+
+
+def to_device(batch, device):
+    """A batch's arrays as tensors on `device` (pinned copies to a card);
+    speaker ids as int64"""
+    device = torch.device(device)
+    out = {}
+    for name, value in batch.items():
+        if not isinstance(value, np.ndarray):
+            out[name] = value
+            continue
+        tensor = torch.from_numpy(np.ascontiguousarray(value))
+        if name == 'speakers' and not tensor.is_floating_point():
+            tensor = tensor.long()
+        if device.type == 'cuda':
+            tensor = tensor.pin_memory()
+        out[name] = tensor.to(device, non_blocking=True)
+    return out
+
+
+def generator_args(batch, config):
+    """The generator's inputs from a batch (on the device): the
+    interpretable features, or under SPECTROGRAM_ONLY the spectrograms;
+    then speakers and the augmentation ratios"""
+    features = (
+        (batch['spectrograms'],) if config.SPECTROGRAM_ONLY else (
+            batch['loudness'], batch['pitch'], batch['periodicity'],
+            batch['ppg']))
+    return features + (
+        batch['speakers'], batch['spectral_balance_ratios'],
+        batch['loudness_ratios'])
+
+
+###############################################################################
+# Checkpoints
+###############################################################################
+
+
+def optimizer_state(optimizer, names, parameters):
+    """{'step': int (where the optimizer counts), and each state tensor
+    by kind and parameter name} of a torch optimizer"""
+    saved = {}
+    for name, parameter in zip(names, parameters):
+        for kind, value in optimizer.state.get(parameter, {}).items():
+            if kind == 'step':
+                saved['step'] = int(value)
+            else:
+                saved.setdefault(kind, {})[name] = value
+    return saved
+
+
+def load_optimizer_state(optimizer, names, parameters, saved):
+    """Put an `optimizer_state` back into a torch optimizer"""
+    for name, parameter in zip(names, parameters):
+        state = {
+            kind: values[name].to(parameter) for kind, values in saved.items()
+            if kind != 'step'}
+        if not state:
+            continue
+        if 'step' in saved:
+            state['step'] = torch.tensor(float(saved['step']))
+        optimizer.state[parameter] = state
+
+
+def _discriminator_parameters(state):
+    names, parameters = zip(*state.discriminator.named_parameters())
+    return list(names), list(parameters)
+
+
+def save_checkpoint(directory, state, step, epoch):
+    """Write both models' checkpoints for `step`, then prune the run
+
+    The discriminators' file is written first: the generator's, which
+    resuming looks for, lands last.
+    """
+    directory = Path(directory)
+    names, parameters = _discriminator_parameters(state)
+    checkpoint_module.save(
+        directory / f'discriminator-{step:08d}.pt',
+        state.discriminator.state_dict(), step=step, epoch=epoch,
+        optimizer=optimizer_state(
+            state.discriminator_optimizer, names, parameters))
+    with torch.no_grad():
+        params = dict(state.generator.state_dict(), **state.effective())
+    checkpoint_module.save(
+        directory / f'generator-{step:08d}.pt', params, step=step,
+        epoch=epoch, trainable=state.trainable,
+        optimizer=optimizer_state(
+            state.generator_optimizer, state.names,
+            [state.trainable[name] for name in state.names]))
+    checkpoint_module.prune(directory)
+
+
+def load_checkpoint(state, generator_path):
+    """Restore a generator checkpoint (and the discriminators' beside it)
+    into `state`; returns (step, epoch)
+
+    A checkpoint without 'trainable' warm-starts the generator from its
+    effective weights (`models.modules.split`) and leaves both optimizers
+    and the discriminators as they are.
+    """
+    generator_path = Path(generator_path)
+    payload = checkpoint_module.load(generator_path, map_location='cpu')
+    trainable = payload.get('trainable')
+    if trainable is None:
+        trainable = split(payload['params'], state.normed)
+    if set(trainable) != set(state.trainable):
+        raise ValueError(
+            f'{generator_path} does not fit the configured generator')
+    with torch.no_grad():
+        for name, value in trainable.items():
+            state.trainable[name].copy_(value)
+    if 'optimizer' in payload:
+        load_optimizer_state(
+            state.generator_optimizer, state.names,
+            [state.trainable[name] for name in state.names],
+            payload['optimizer'])
+
+    discriminator_path = generator_path.parent / generator_path.name.replace(
+        'generator', 'discriminator')
+    if discriminator_path.exists():
+        saved = checkpoint_module.load(discriminator_path, map_location='cpu')
+        state.discriminator.load_state_dict(saved['params'])
+        names, parameters = _discriminator_parameters(state)
+        load_optimizer_state(
+            state.discriminator_optimizer, names, parameters,
+            saved['optimizer'])
+    return int(payload['step']), int(payload['epoch'])
+
+
+###############################################################################
+# Train step
+###############################################################################
+
+
+def _gradients(total, parameters):
+    """d total / d parameters, zeros where a parameter does not reach it"""
+    gradients = torch.autograd.grad(total, parameters, allow_unused=True)
+    return [
+        torch.zeros_like(parameter) if gradient is None else gradient
+        for parameter, gradient in zip(parameters, gradients)]
+
+
+def _apply(optimizer, parameters, gradients):
+    for parameter, gradient in zip(parameters, gradients):
+        parameter.grad = gradient
+    optimizer.step()
+    for parameter in parameters:
+        parameter.grad = None
+
+
+def train_step(state, batch, discriminate=True, adversarial=True):
+    """One GAN step on a batch of device tensors; returns the metrics,
+    float32 scalar tensors on the device, by the JAX package's names"""
+    config = state.config
+    loss = loss_module
+    discriminator = state.discriminator
+    audio = batch['audio']
+
+    generated = functional_call(
+        state.generator, state.effective(), generator_args(batch, config),
+        {'train': True})
+    metrics = {}
+
+    # Discriminators, against the detached output
+    if discriminate:
+        real_logits, fake_logits, _, _ = discriminator(
+            audio, generated.detach())
+        total, real_losses, fake_losses = loss.discriminator(
+            real_logits, fake_logits, config)
+        parameters = list(discriminator.parameters())
+        _apply(
+            state.discriminator_optimizer, parameters,
+            _gradients(total, parameters))
+        metrics['loss/discriminator/total'] = total.detach()
+        for i, value in enumerate(real_losses):
+            metrics[f'loss/discriminator/real-{i:02d}'] = value.detach()
+        for i, value in enumerate(fake_losses):
+            metrics[f'loss/discriminator/fake-{i:02d}'] = value.detach()
+
+    # Generator, through the updated discriminators
+    total = torch.zeros((), device=audio.device)
+    aux = {}
+    if config.MEL_LOSS:
+        mel_loss = loss.mel(batch['spectrograms'], generated, config)
+        total = total + config.MEL_LOSS_WEIGHT * mel_loss
+        aux['loss/generator/mels'] = mel_loss
+    if config.SPECTRAL_CONVERGENCE_LOSS:
+        spectral = loss.multi_resolution_spectral_convergence(
+            generated, audio)
+        total = total + spectral
+        aux['loss/generator/spectral-convergence'] = spectral
+    if config.SIGNAL_LOSS:
+        signal_loss = loss.signal(
+            audio.reshape(audio.shape[0], -1),
+            generated.reshape(generated.shape[0], -1))
+        total = total + config.SIGNAL_LOSS_WEIGHT * signal_loss
+        aux['loss/generator/signal'] = signal_loss
+    if adversarial:
+        _, fake_logits, real_maps, fake_maps = discriminator(audio, generated)
+        feature_matching = loss.feature_matching(real_maps, fake_maps, config)
+        total = total + config.FEATURE_MATCHING_LOSS_WEIGHT * feature_matching
+        adversarial_loss, adversarial_losses = loss.generator(
+            fake_logits, config)
+        total = total + config.ADVERSARIAL_LOSS_WEIGHT * adversarial_loss
+        aux['loss/generator/feature-matching'] = feature_matching
+        for i, value in enumerate(adversarial_losses):
+            aux[f'loss/generator/adversarial-{i:02d}'] = value
+
+    parameters = [state.trainable[name] for name in state.names]
+    gradients = _gradients(total, parameters)
+    gradient_max = torch.max(torch.stack([g.max() for g in gradients]))
+    gradient_min = torch.min(torch.stack([g.min() for g in gradients]))
+    metrics['gradients/max'] = gradient_max
+    metrics['gradients/min'] = gradient_min
+    if config.GRADIENT_CLIP_GENERATOR is not None:
+        bound = config.GRADIENT_CLIP_GENERATOR
+        over = torch.maximum(gradient_max, -gradient_min) > bound
+        gradients = [
+            torch.where(over, torch.clamp(g, -bound, bound), g)
+            for g in gradients]
+    _apply(state.generator_optimizer, parameters, gradients)
+
+    metrics['loss/generator/total'] = total.detach()
+    metrics.update({name: value.detach() for name, value in aux.items()})
+    return metrics
+
+
+###############################################################################
+# In-training evaluation
+###############################################################################
+
+
+def evaluate(directory, step, state, valid_loader, extractors,
+             max_batches=None):
+    """Validation: DEFAULT_EVALUATION_STEPS items of the validation
+    partition (batches of one, padded to their bucket) synthesized with
+    the current weights on the inference route, their masked mel loss,
+    and their audio preprocessed again and scored against the item's
+    features (`evaluate.Metrics`; not under SPECTROGRAM_ONLY, as in the
+    JAX package); logged under 'validation/'. Audio of the first
+    PLOT_EXAMPLES items goes to TensorBoard where it imports.
+    The JAX package also draws prosody figures, which need `plot/`: none
+    are drawn here."""
+    config = state.config
+    if max_batches is None:
+        max_batches = config.DEFAULT_EVALUATION_STEPS
+    if not getattr(evaluate, '_figures_noted', False):
+        evaluate._figures_noted = True
+        print('promonet_tpu_torch: validation figures need plot/, which is '
+              'not ported; none are logged', file=sys.stderr)
+    generator = state.generator
+    device = state.trainable[state.names[0]].device
+    with torch.no_grad():
+        generator.load_state_dict(state.effective())
+    pitch_model, ppg_model = extractors
+    metrics = Metrics(include_wer=False, config=config)
+    mel_total, count, audio_logs = 0., 0, {}
+    hopsize = config.HOPSIZE
+    for i, batch in enumerate(valid_loader):
+        if i >= max_batches:
+            break
+        length = int(batch['lengths'][0])
+        batch = to_device(batch, device)
+        with torch.inference_mode():
+            generated = generator(*generator_args(batch, config))
+            mask = torch.arange(
+                batch['spectrograms'].shape[-1], device=device) < length
+            mel_total += float(loss_module.mel(
+                batch['spectrograms'], generated, config, mask[None]))
+        count += 1
+        if config.SPECTROGRAM_ONLY:
+            continue
+        waveform = generated[0, :, :length * hopsize].float()
+        with torch.inference_mode():
+            predicted = preprocess.from_audio(
+                waveform, pitch_model, ppg_model,
+                features=('loudness', 'pitch', 'periodicity', 'ppg'),
+                loudness_bands=None, config=config, device=device)
+        metrics.update(
+            batch['loudness'][0, :, :length].mean(dim=-2),
+            predicted[0].mean(dim=-2)[..., :length],
+            batch['pitch'][0, :length],
+            batch['periodicity'][0, :length],
+            predicted[1][..., :length],
+            predicted[2][..., :length],
+            batch['ppg'][0, :, :length],
+            predicted[3][..., :length])
+        if i < config.PLOT_EXAMPLES:
+            stem = batch['stems'][0].replace('/', '-')
+            audio_logs[f'audio/{stem}'] = waveform.cpu().numpy()
+    if not count:
+        return
+    scalars = {'validation/mels': mel_total / count}
+    for name, value in ({} if config.SPECTROGRAM_ONLY else metrics()).items():
+        if isinstance(value, dict):
+            for sub, subvalue in value.items():
+                scalars[f'validation/{sub}'] = subvalue
+        else:
+            scalars[f'validation/{name}'] = value
+    log.update(
+        directory, step, scalars=scalars, audio=audio_logs,
+        sample_rate=config.SAMPLE_RATE)

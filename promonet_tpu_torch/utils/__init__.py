@@ -1,1 +1,1 @@
-from . import audio, checkpoint, timer
+from . import audio, checkpoint, log, timer

@@ -33,6 +33,8 @@ class ArgumentParser(argparse.ArgumentParser):
         """The namespace, with `config` a `config.Config` and `device` in
         place of `gpu`"""
         namespace = super().parse_args(*args, **kwargs)
+        # The files themselves, for entry points that copy them
+        self.config_paths = list(namespace.config or [])
         if namespace.gpu is not None and namespace.gpu < -1:
             self.error(f'--gpu {namespace.gpu}: give an index, or -1 for the '
                        'CPU')

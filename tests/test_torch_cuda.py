@@ -693,3 +693,86 @@ def test_evaluation_decodes_once_per_job_on_the_card(device, tmp_path):
     assert phases['preprocess'] == [12, 0]
     assert phases['generate'][0] == 0 and phases['generate'][1] % 12 == 0
     assert phases['generate'][1] > 0
+
+
+###############################################################################
+# Training (K1 serves validation only)
+###############################################################################
+
+
+def _train_batch(config, seed, batch=2, frames=8):
+    rng = np.random.default_rng(seed)
+    ppg = rng.random((batch, config.PPG_CHANNELS, frames)).astype(np.float32)
+    return {
+        'loudness': rng.uniform(-80, 0, (batch, 513, frames)).astype(
+            np.float32),
+        'pitch': rng.uniform(80, 300, (batch, frames)).astype(np.float32),
+        'periodicity': rng.random((batch, frames)).astype(np.float32),
+        'ppg': ppg / ppg.sum(1, keepdims=True),
+        'speakers': np.arange(batch, dtype=np.int32),
+        'spectral_balance_ratios': np.ones(batch, np.float32),
+        'loudness_ratios': np.ones(batch, np.float32),
+        'spectrograms': np.abs(rng.standard_normal(
+            (batch, 513, frames))).astype(np.float32) + 1e-3,
+        'audio': (0.3 * rng.standard_normal(
+            (batch, 1, frames * config.HOPSIZE))).astype(np.float32)}
+
+
+def test_training_route_launches_no_block_kernel(device):
+    """HiFi-GAN 512 in bf16 on the card: train=True back-propagates
+    through cuDNN convolutions (under REMAT) with no K1 launch; the
+    inference route launches it 12 times"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.train import core
+    config = port.config.load()
+    generator = port.models.init.seeded(
+        port.models.Generator(config), 0).to(device)
+    batch = core.to_device(_train_batch(config, 0, frames=64), device)
+    launches = resblock.fused_block.launches
+    audio = generator(*core.generator_args(batch, config), train=True)
+    audio.float().pow(2).mean().backward()
+    assert resblock.fused_block.launches == launches
+    weight = generator.backbone.stages[3].blocks[2].weight
+    assert weight.grad is not None and torch.isfinite(weight.grad).all()
+    with torch.inference_mode():
+        generator(*core.generator_args(batch, config))
+    assert resblock.fused_block.launches == launches + 12
+
+
+def test_narrow_float32_step_on_the_card_matches_the_cpu(device):
+    """One float32 training step from the same seeded state on the card and
+    on the CPU (TF32 off): every loss within 1e-4 relative"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.train import core
+    config = port.config.load().replace(
+        HIFIGAN_UPSAMPLE_INITIAL_SIZE=32, CHUNK_SIZE=2048, BATCH_SIZE=2,
+        PRECISION='float32')
+    batch = _train_batch(config, 1)
+    losses = []
+    for where in ('cpu', device):
+        state = core.create_state(config, where)
+        metrics = core.train_step(state, core.to_device(batch, where))
+        losses.append({name: float(value) for name, value in metrics.items()
+                       if name.startswith('loss/')})
+    for name, value in losses[0].items():
+        assert abs(losses[1][name] - value) <= 1e-4 * abs(value), name
+
+
+@pytest.mark.parametrize('frames', [64, 128])
+def test_resblock_kernel_serves_validation_shapes(device, frames):
+    """Validation synthesizes one item at a time, padded to its bucket:
+    K1 at (1, bucket x upsampling) of each stage, within the bound"""
+    rates, channels = (8, 8, 2, 2), 512
+    length = frames
+    for rate in rates:
+        channels, length = channels // 2, length * rate
+        for kernel_size in (3, 7, 11):
+            x, weights, biases = _resblock_problem(
+                device, 1, length, channels, kernel_size)
+            launches = resblock.fused_block.launches
+            kernel = resblock.fused_block(
+                x, weights, biases, DILATIONS, 0.1).float()
+            assert resblock.fused_block.launches == launches + 1
+            plain = resblock.reference_block(
+                x, weights, biases, DILATIONS, 0.1, torch.bfloat16).float()
+            assert _within_bound(kernel, plain), (length, channels)

@@ -249,32 +249,78 @@ def _jax_package_files():
         if path.is_file() and '__pycache__' not in path.parts)
 
 
-def test_port_never_writes_into_the_jax_package(tmp_path):
-    """The corpus, its partition and an evaluation at the defaults, with
-    only the directories the port writes pointed at a temporary one; the
-    generator is narrowed to the width the parity tests use, which moves
-    no file"""
+def _jax_runs():
+    """Every file under the JAX package's run directory, with its size"""
+    runs = ROOT / 'runs' / 'promonet'
+    return sorted(
+        (str(path.relative_to(runs)), path.stat().st_size)
+        for path in runs.rglob('*') if path.is_file())
+
+
+def test_port_never_writes_into_the_jax_package(tmp_path, monkeypatch):
+    """The corpus, its partition and an evaluation at the defaults, then
+    augmentation, training and speaker adaptation, with only the
+    directories the port writes pointed at a temporary one; the generator
+    is narrowed to the width the parity tests use, and training to a
+    chunk of 2048 samples, which moves no file. Training runs on two
+    threads and without TensorBoard, as in `test_torch_train_runs.py`"""
+    import torch
+    monkeypatch.setattr(
+        port.utils.log, '_tensorboard_writer', lambda directory: None)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        _run_everything_that_writes(tmp_path)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run_everything_that_writes(tmp_path):
     shipped = ROOT / 'promonet_tpu' / 'assets' / 'partitions' / \
         'multispeaker' / 'synthetic.json'
-    before = shipped.read_bytes(), _jax_package_files()
+    augmentations = ROOT / 'promonet_tpu' / 'assets' / 'augmentations'
+    before = (
+        shipped.read_bytes(), _jax_package_files(), _jax_runs(),
+        {path.name: path.read_bytes() for path in augmentations.iterdir()})
     config = port.config.load().replace(
         CACHE_DIR=tmp_path / 'cache', PARTITIONS_DIR=tmp_path / 'partitions',
         EVAL_DIR=tmp_path / 'eval', RESULTS_DIR=tmp_path / 'results',
-        HIFIGAN_UPSAMPLE_INITIAL_SIZE=32)
+        AUGMENT_DIR=tmp_path / 'augmentations', RUNS_DIR=tmp_path / 'runs',
+        CHECKPOINTS_DIR=tmp_path / 'checkpoints',
+        HIFIGAN_UPSAMPLE_INITIAL_SIZE=32, CHUNK_SIZE=2048, BATCH_SIZE=1,
+        DEFAULT_EVALUATION_STEPS=1, STEPS=0, ADAPTATION_STEPS=1)
     port.data.synthetic.create(
         speakers=1, utterances=3, seconds=0.5, config=config, device='cpu')
     port.partition.dataset('synthetic', config=config)
     results = port.evaluate.datasets(
         ['synthetic'], config=config, device='cpu')
     assert len(results['synthetic']['objective']) == 11
-    assert (shipped.read_bytes(), _jax_package_files()) == before
+
+    port.data.augment.datasets(['synthetic'], config)
+    port.data.preprocess.core.datasets(
+        ['synthetic'], config=config, device='cpu')
+    run = config.RUNS_DIR / config.CONFIG
+    port.train(run, 'synthetic', steps=1, config=config, device='cpu')
+    wavs = sorted((config.CACHE_DIR / 'synthetic' / '0000').glob('*-100.wav'))
+    port.adapt.speaker(
+        'voice', wavs + wavs[:2], checkpoint=run / 'generator-00000001.pt',
+        config=config, device='cpu')
+    assert (config.RUNS_DIR / 'voice' / 'generator-00000002.pt').exists()
+
+    assert (
+        shipped.read_bytes(), _jax_package_files(), _jax_runs(),
+        {path.name: path.read_bytes() for path in augmentations.iterdir()}
+    ) == before
     written = {path.relative_to(tmp_path).parts[0]
                for path in tmp_path.rglob('*') if path.is_file()}
-    assert written == {'cache', 'partitions', 'eval', 'results'}
+    assert written == {
+        'cache', 'partitions', 'eval', 'results', 'augmentations', 'runs'}
+    defaults = port.config.load()
     assert all(
-        str(getattr(config, name)).startswith(str(ROOT / 'data'))
-        for name in ('CACHE_DIR', 'PARTITIONS_DIR', 'EVAL_DIR', 'RESULTS_DIR')
-        for config in [port.config.load()])
+        str(getattr(defaults, name)).startswith(str(ROOT / 'data'))
+        for name in ('CACHE_DIR', 'PARTITIONS_DIR', 'EVAL_DIR', 'RESULTS_DIR',
+                     'AUGMENT_DIR'))
+    assert defaults.RUNS_DIR == ROOT / 'runs_torch'
 
 
 def test_directories_given_as_strings_are_paths(tmp_path):

@@ -235,20 +235,29 @@ def test_command_line_writes_the_same_conditions(evaluations, tmp_path):
         _assert_metrics_close(written['objective'][condition], values)
 
 
-def test_command_line_refuses_adaptation():
+def test_command_line_refuses_adaptation(tmp_path):
+    """`--adapt` reaches `evaluate.datasets(adapt=True)`, which refuses a
+    dataset without an adaptation partition"""
+    config_file = tmp_path / 'empty.py'
+    config_file.write_text(
+        "MODULE = 'promonet_tpu_torch'\n"
+        f"PARTITIONS_DIR = {str(tmp_path / 'partitions')!r}\n"
+        f"CHECKPOINTS_DIR = {str(tmp_path / 'checkpoints')!r}\n")
     result = subprocess.run(
         [sys.executable, '-m', 'promonet_tpu_torch.evaluate', '--adapt',
-         '--gpu', '-1'],
+         '--datasets', 'synthetic', '--gpu', '-1', '--config',
+         str(config_file)],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert result.returncode == 2
-    assert 'ROADMAP.md' in result.stderr
+    assert result.returncode == 1
+    assert 'adaptation' in result.stderr and 'synthetic.json' in \
+        result.stderr
 
 
-def test_what_is_not_ported_raises(evaluations):
+def test_what_is_not_ported_raises(evaluations, tmp_path):
     _, config, _, _ = evaluations
-    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 item 3'):
-        port.evaluate.datasets(
-            ['synthetic'], adapt=True, config=config, device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP.md §1'):
+        port.train(tmp_path, 'synthetic', config=config.replace(
+            MODEL='fargan'), device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP.md §1 item 4'):
         port.evaluate.datasets(
             ['synthetic'], config=config.replace(MODEL='world'),
