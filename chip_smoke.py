@@ -132,7 +132,12 @@ Phases, each printed as one JSON line with the seconds since the start
    frames) that the two evaluations' HiFi-GAN calls were given (the
    bucket groups at batch 8, the mels stems at batch 1). Last `python -m
    promonet_tpu_torch.evaluate --gpu 0 --max_stems 1` in a process of
-   its own must write results.json with the same conditions.
+   its own must write results.json with the same conditions. Then the
+   WORLD baseline (configs/baselines/world.py) over the same corpus:
+   all 11 conditions with finite loudness, periodicity and PPG, the 44
+   jobs' audio made on the host and preprocessed again on the card (44
+   Viterbi decodes, no residual-block call), and one job's audio equal
+   to `baseline.world.from_audio` called on its input.
 15. training path, full width (the default configuration: HiFi-GAN 512,
    five period and the complex multi-band discriminators, batch 64 of
    16384 samples, bf16, REMAT; the seeded extractors of phase 4 written
@@ -158,7 +163,34 @@ Phases, each printed as one JSON line with the seconds since the start
    2 held out, batch 16, ADAPTATION_STEPS 2 from the step-5 checkpoint)
    through evaluate.datasets(adapt=True), whose generator calls launch
    12 residual-block calls each.
-16. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
+16. FARGAN training path, full width (configs/fargan.py: batch 256 x
+   4096 samples, bf16, the five period and the complex multi-band
+   discriminators from step 0, spectral-convergence loss): a formant
+   corpus of 16 speakers x 8 utterances x 1 s (288 training items with
+   their augmented copies, 16 validation items) made on the card; `train`
+   for 3 steps with its validation at step 0, then resumed to step 5.
+   Each step timed by CUDA events, its losses finite, no residual-block
+   call; the validation 16 FARGAN calls, 16 pitch decodes and no
+   residual-block call; peak memory of each call and one profiled step's
+   idle share; one narrow float32 step on the card against the same step
+   on the CPU, both drawing the same training noise (losses within 1e-4
+   relative).
+17. export path: `python -m promonet_tpu_torch.models.export` on the main
+   path's seeded generator in a process of its own (a `.pt2` program and
+   a `.pt` of parameters), then in a second process `torch.export.load`
+   and a run on the main path's features packed at 32 frames: 12
+   residual-block calls, audio of 8192 samples within the bf16 bound of
+   eager `packed_inference`; the program's and eager times; K1 against
+   its plain version at that program's Block shapes; then `python -m
+   promonet_tpu_torch.data.pack` on the main path's features saved under
+   the cache's names: a `.npy` equal to `data.pack.from_features` and a
+   `.csv` with the time column and `labels()` as its header.
+18. CARGAN path: `models.cargan.CARGAN` (the HiFi-GAN 512 and its
+   autoregressive encoder, seeded) once in bf16 on the main path's
+   features: 12 residual-block calls, finite audio of frames * HOPSIZE
+   samples; half a second of those features through the plain CPU path
+   in float32 with the same weights within 5% relative RMS.
+19. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
    launches per Block, the time at each number of row tiles per thread
    block, the plain chain's and cuDNN's times and the bound; K2 with the
    forward pass and the backtrace timed apart, microseconds per frame
@@ -1406,6 +1438,61 @@ def evaluation_path(torch, port, device, config, pitch_model, ppg_model,
                 relative_rms >= 0.05:
             raise AssertionError('the mels evaluation is wrong')
 
+        # The WORLD baseline on the same corpus: every condition, each
+        # job generated on the host from the stem's wav and preprocessed
+        # again on the card, one K2 decode per job and no K1
+        world_config = port.config.load(
+            ROOT / 'configs' / 'baselines' / 'world.py').replace(**dict(
+                dirs, EVAL_DIR=directory / 'eval-world'))
+        phases, _, restore = counted_phases(torch, port)
+        try:
+            start = time.perf_counter()
+            world = port.evaluate.datasets(
+                ['synthetic'], config=world_config,
+                device=device)['synthetic']
+            world_seconds = time.perf_counter() - start
+        finally:
+            restore()
+        launches['world'] = phases
+        world_objective = world['objective']
+        finite = all(
+            np.isfinite(values[name]).all()
+            for values in world_objective.values()
+            for name in ('periodicity', 'ppg')) and all(
+            np.isfinite(value) for values in world_objective.values()
+            for value in values['loudness'].values())
+        # One job's audio against the baseline called on the CPU with the
+        # same input: the stem's wav and the job's edited pitch
+        stem = test_stems[0]
+        stem_features, stem_frames = evaluate_core._load_features(
+            cache, stem, world_config.replace(
+                INFERENCE_FRAME_BUCKETS=evaluate_core._coarse_bucket_ladder(
+                    'synthetic', {'': test_stems}, world_config)), 'cpu')
+        shift = evaluate_core._conditions(world_config)['shifted-141'][0]
+        pitch = port.edit.from_padded_features(
+            *stem_features, stem_frames, shift, None, None, world_config)[1]
+        expected = port.baseline.world.from_audio(
+            port.load.audio(cache / f'{stem}.wav', world_config),
+            pitch=pitch[..., :stem_frames].numpy(), config=world_config)
+        written, _ = port.utils.audio.load(
+            directory / 'eval-world' / 'subjective' / 'shifted-141' /
+            f'synthetic-{stem.replace("/", "-")}-shifted-141.wav')
+        world_error = float(np.abs(written - expected).max())
+        record = dict(
+            phase='evaluation_world', seconds=world_seconds, jobs=jobs,
+            launches=phases, benchmark=world['benchmark'],
+            conditions=sorted(world_objective), finite=finite,
+            objective_reconstructed=world_objective['reconstructed'],
+            job_max_abs_err_vs_cpu_call=world_error)
+        emit(**record)
+        if len(world_objective) != conditions or not finite or \
+                phases['preprocess']['viterbi'] != jobs or any(
+                    counts['resblock'] or counts['generator_calls']
+                    for counts in phases.values()) or \
+                written.shape != expected.shape or \
+                world_error > 2 / 32768:
+            raise AssertionError('the WORLD evaluation is wrong')
+
         # K1 at every (batch, frames) that the evaluation's and the mels
         # baseline's HiFi-GAN calls gave it (bucket groups are filled to
         # the batch size), held to the bf16 bound with the zeroed-bias
@@ -1818,6 +1905,433 @@ def training_path(torch, port, device, config, pitch_model, ppg_model,
                     for counts in phases.values()):
             raise AssertionError('the adaptation is wrong')
     return launches, k1_error, k2_error
+
+
+# FARGAN's training corpus: 16 speakers x 8 utterances x 1 s; the
+# partition keeps six per speaker for training (96 stems, 288 items with
+# their augmented copies: one batch of configs/fargan.py's 256) and one
+# for validation (16 items, DEFAULT_EVALUATION_STEPS)
+FARGAN_CORPUS = dict(speakers=16, utterances=8, seconds=1.0)
+
+
+def shared_noise(torch, seed):
+    """A FARGAN noise source that draws the same values for a tensor on
+    any device: uniform draws from a seeded CPU generator, then moved"""
+    generator = torch.Generator().manual_seed(seed)
+    return lambda x: torch.rand(
+        x.shape, generator=generator, dtype=x.dtype).to(x.device)
+
+
+def fargan_training_path(torch, port, device, config, pitch_model,
+                         ppg_model):
+    """Phase 16: FARGAN trained at full width (configs/fargan.py: batch 256
+    x 4096 samples, bf16, the period and complex multi-band discriminators
+    from step 0, spectral-convergence loss) on a formant corpus made on
+    the card, 3 steps with validation at step 0, then resumed to step 5;
+    one profiled step; one narrow float32 step on the card against the
+    same step on the CPU with the same noise. Returns the launch counts of
+    each part"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    train_core = sys.modules['promonet_tpu_torch.train.core']
+    (ROOT / 'build').mkdir(exist_ok=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as directory:
+        directory = Path(directory)
+        checkpoints = directory / 'checkpoints'
+        checkpoint = port.utils.checkpoint
+        checkpoint.save(checkpoints / 'pitch-00000001.pt',
+                        pitch_model.state_dict(), step=1)
+        checkpoint.save(checkpoints / 'ppg-00000002.pt',
+                        ppg_model.state_dict(), step=2)
+        train_config = port.config.load(
+            ROOT / 'configs' / 'fargan.py').replace(
+            CACHE_DIR=directory / 'cache',
+            PARTITIONS_DIR=directory / 'partitions',
+            AUGMENT_DIR=directory / 'augmentations',
+            RUNS_DIR=directory / 'runs', CHECKPOINTS_DIR=checkpoints,
+            NUM_WORKERS=8)
+
+        reset_launch_counts(resblock, viterbi)
+        start = time.perf_counter()
+        cache = port.data.synthetic.create(
+            'synthetic', **FARGAN_CORPUS, preprocess=False,
+            config=train_config, device=device)
+        port.data.augment.datasets(['synthetic'], train_config)
+        port.data.preprocess.core.datasets(
+            ['synthetic'], pitch_model=pitch_model, ppg_model=ppg_model,
+            config=train_config, device=device)
+        torch.cuda.synchronize()
+        launches['corpus'] = launch_counts(resblock, viterbi)
+        wavs = sorted(cache.glob('*/*.wav'))
+        train_items = len(port.data.Dataset(
+            'synthetic', 'train', train_config))
+        partition = port.load.partition('synthetic', False, train_config)
+        emit(phase='fargan_training_corpus',
+             seconds=time.perf_counter() - start, wavs=len(wavs),
+             train_stems=len(partition['train']), train_items=train_items,
+             valid_stems=len(partition['valid']),
+             launches=launches['corpus'])
+        if train_items < train_config.BATCH_SIZE or \
+                len(partition['valid']) != \
+                train_config.DEFAULT_EVALUATION_STEPS or \
+                launches['corpus']['viterbi'] != len(wavs):
+            raise AssertionError('the FARGAN training corpus is wrong')
+
+        steps, validations, last, batches = [], [], {}, []
+        original_step = train_core.train_step
+        original_evaluate = train_core.evaluate
+
+        def timed_step(*args, **kwargs):
+            start_event = torch.cuda.Event(enable_timing=True)
+            end_event = torch.cuda.Event(enable_timing=True)
+            start_event.record()
+            metrics = original_step(*args, **kwargs)
+            end_event.record()
+            steps.append({'events': (start_event, end_event)})
+            batches[:] = [args[1]]
+            return metrics
+
+        def callback(step, metrics):
+            torch.cuda.synchronize()
+            now = launch_counts(resblock, viterbi)
+            steps[-1].update(
+                step=step, launches={k: now[k] - last.get(k, 0) for k in now},
+                losses={k: float(v) for k, v in metrics.items()
+                        if k.startswith('loss/')})
+            last.update(now)
+
+        def counted_evaluate(*args, **kwargs):
+            before = launch_counts(resblock, viterbi)
+            calls = [0]
+
+            def hook(module, inputs, output):
+                if isinstance(module, port.models.fargan.FARGAN):
+                    calls[0] += 1
+
+            handle = torch.nn.modules.module.register_module_forward_hook(
+                hook)
+            start = time.perf_counter()
+            try:
+                original_evaluate(*args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                handle.remove()
+            after = launch_counts(resblock, viterbi)
+            validations.append(dict(
+                seconds=time.perf_counter() - start, generator_calls=calls[0],
+                launches={k: after[k] - before[k] for k in after}))
+            last.update(after)
+
+        run = train_config.RUNS_DIR / train_config.CONFIG
+        train_core.train_step = timed_step
+        train_core.evaluate = counted_evaluate
+        try:
+            results = {}
+            for label, stop in (('train', 3), ('resume', 5)):
+                reset_launch_counts(resblock, viterbi)
+                last.clear()
+                first = len(steps)
+                torch.cuda.reset_peak_memory_stats()
+                start = time.perf_counter()
+                state = port.train(
+                    run, 'synthetic', steps=stop, config=train_config,
+                    device=device, callback=callback)
+                torch.cuda.synchronize()
+                results[label] = dict(
+                    seconds=time.perf_counter() - start,
+                    steps=[entry['step'] for entry in steps[first:]],
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        finally:
+            train_core.train_step = original_step
+            train_core.evaluate = original_evaluate
+        step_ms = [
+            entry['events'][0].elapsed_time(entry['events'][1])
+            for entry in steps]
+        timed = [ms for entry, ms in zip(steps, step_ms)
+                 if entry['step'] not in (0, 3)]
+        finite = all(np.isfinite(value) for entry in steps
+                     for value in entry['losses'].values())
+        emit(phase='fargan_training', batch=train_config.BATCH_SIZE,
+             chunk=train_config.CHUNK_SIZE,
+             precision=train_config.PRECISION,
+             discriminators=[type(d).__name__ for d in
+                             state.discriminator.discriminators],
+             runs=results, step_ms=step_ms,
+             median_step_ms=float(np.median(timed)),
+             steps_per_second=1e3 / float(np.median(timed)),
+             losses={entry['step']: entry['losses'] for entry in steps},
+             finite=finite,
+             step_launches=[entry['launches'] for entry in steps],
+             validations=validations,
+             checkpoints=sorted(path.name for path in run.glob('*.pt')))
+        launches['training_steps'] = [entry['launches'] for entry in steps]
+        launches['validation'] = validations
+        resumed = checkpoint.load(run / 'generator-00000005.pt')
+        items = train_config.DEFAULT_EVALUATION_STEPS
+        if not finite or results['train']['steps'] != [0, 1, 2] or \
+                results['resume']['steps'] != [3, 4] or \
+                resumed['step'] != 5 or resumed['optimizer']['step'] != 5 or \
+                'loss/generator/spectral-convergence' not in steps[0][
+                    'losses'] or \
+                'loss/discriminator/total' not in steps[0]['losses']:
+            raise AssertionError('FARGAN did not train or resume as it must')
+        if any(entry['launches']['resblock'] for entry in steps):
+            raise AssertionError('a FARGAN step launched the block kernel')
+        if len(validations) != 1 or validations[0]['launches'] != {
+                'resblock': 0, 'viterbi': items, 'viterbi_logfreq': 0} or \
+                validations[0]['generator_calls'] != items:
+            raise AssertionError(f'FARGAN validation launched {validations}')
+
+        # One more step on the last batch, profiled
+        profiled = device_busy(torch, lambda: train_core.train_step(
+            state, batches[0]), top=12)
+        emit(phase='fargan_training_profile', profiled_step=profiled,
+             idle_share=idle_share(profiled))
+
+        # One narrow float32 step on the card against the same step on the
+        # CPU: the same seeded state, batch and noise
+        narrow = train_config.replace(
+            BATCH_SIZE=2, CHUNK_SIZE=1536, PRECISION='float32')
+        narrow_batch = train_batch(narrow, 17, frames=6)
+        metrics = {}
+        for where in ('cpu', device):
+            narrow_state = train_core.create_state(narrow, where)
+            metrics[str(where)] = {
+                name: float(value) for name, value in train_core.train_step(
+                    narrow_state, train_core.to_device(
+                        narrow_batch, torch.device(where)),
+                    noise=shared_noise(torch, 18)).items()}
+        card, cpu = metrics[str(device)], metrics['cpu']
+        relative = {
+            name: abs(card[name] - value) / max(abs(value), 1e-12)
+            for name, value in cpu.items() if name.startswith('loss/')}
+        worst = max(relative, key=relative.get)
+        emit(phase='fargan_training_reference', losses_card=card,
+             losses_cpu=cpu, max_relative_difference=relative[worst],
+             worst=worst)
+        if relative[worst] > 1e-4:
+            raise AssertionError(
+                'the card trains FARGAN otherwise than the CPU')
+    return launches
+
+
+EXPORT_RUNNER = """
+import json, sys, time
+import numpy as np
+import torch
+start = time.perf_counter()
+import promonet_tpu_torch
+from promonet_tpu_torch.ops import resblock
+imported = time.perf_counter()
+program = torch.export.load(sys.argv[1]).module()
+loaded = time.perf_counter()
+x = torch.from_numpy(np.load(sys.argv[2])).cuda()
+resblock.fused_block.launches = 0
+with torch.inference_mode():
+    audio = program(x)
+    torch.cuda.synchronize()
+    first = time.perf_counter()
+    launches = resblock.fused_block.launches
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(2):
+        program(x)
+    begin.record()
+    for _ in range(10):
+        program(x)
+    end.record()
+    torch.cuda.synchronize()
+np.save(sys.argv[3], audio.float().cpu().numpy())
+print(json.dumps({
+    'launches': launches, 'import_s': imported - start,
+    'load_s': loaded - imported, 'first_call_s': first - loaded,
+    'ms': begin.elapsed_time(end) / 10,
+    'device': torch.cuda.get_device_name(0)}))
+"""
+
+# Frames of the exported program's input: the JAX package's buffer of
+# 8192 samples
+EXPORT_FRAMES = 8192 // 256
+
+
+def export_path(torch, port, device, config, features, generator):
+    """Phase 17: `python -m promonet_tpu_torch.models.export` on the main
+    path's seeded checkpoint in a process of its own, the program loaded
+    and run in a second process on the main path's features packed at 32
+    frames (12 K1 calls, within the bf16 bound of eager
+    `packed_inference`), K1 against its plain version at that program's
+    Block shapes, and `python -m promonet_tpu_torch.data.pack` on those
+    features saved under the cache's names; returns (launch counts, the
+    largest K1 error of these checks)"""
+    from promonet_tpu_torch.models import export
+    from promonet_tpu_torch.ops import resblock, viterbi
+    (ROOT / 'build').mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as directory:
+        directory = Path(directory)
+        generator_file = directory / 'generator-00000003.pt'
+        port.utils.checkpoint.save(
+            generator_file, generator.state_dict(), step=3)
+        gpu = str(torch.device(device).index or 0)
+        start = time.perf_counter()
+        result = subprocess.run(
+            [sys.executable, '-m', 'promonet_tpu_torch.models.export',
+             '--checkpoint', str(generator_file), '--output_file',
+             str(directory / 'exported'), '--gpu', gpu],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        export_wall = time.perf_counter() - start
+        if result.returncode:
+            raise AssertionError(
+                f'the export CLI exited {result.returncode}:\n'
+                f'{result.stderr[-4000:]}')
+
+        # The main path's features, their first 32 frames packed
+        loudness, pitch, periodicity, ppg = (
+            value[..., :EXPORT_FRAMES][None] if value.dim() == 2 else
+            value[..., :EXPORT_FRAMES] for value in features)
+        packed = export.pack_features(
+            loudness, pitch.reshape(1, -1), periodicity.reshape(1, -1), ppg,
+            torch.tensor([3], device=device),
+            torch.tensor([1.], device=device),
+            torch.tensor([1.], device=device), config)
+        np.save(directory / 'packed.npy', packed.cpu().numpy())
+        start = time.perf_counter()
+        result = subprocess.run(
+            [sys.executable, '-c', EXPORT_RUNNER,
+             str(directory / 'exported.pt2'),
+             str(directory / 'packed.npy'), str(directory / 'audio.npy')],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        load_wall = time.perf_counter() - start
+        if result.returncode:
+            raise AssertionError(
+                f'the exported program did not run ({result.returncode}):\n'
+                f'{result.stderr[-4000:]}')
+        loaded = json.loads(result.stdout.strip().splitlines()[-1])
+        exported_audio = torch.from_numpy(np.load(directory / 'audio.npy'))
+        reset_launch_counts(resblock, viterbi)
+        with torch.inference_mode():
+            eager = export.packed_inference(generator, packed).float()
+        torch.cuda.synchronize()
+        eager_launches = launch_counts(resblock, viterbi)
+        eager_ms = elapsed_ms(torch, lambda: export.packed_inference(
+            generator, packed))
+        eager = eager.cpu()
+        within = within_bf16_bound(torch, exported_audio, eager)
+        record = dict(
+            phase='export', export_wall_s=export_wall,
+            load_wall_s=load_wall, program=loaded,
+            eager_launches=eager_launches, eager_ms=eager_ms,
+            samples=exported_audio.shape[-1],
+            max_abs_err=float((exported_audio - eager).abs().max()),
+            within_bf16_bound=within,
+            files=sorted(path.name for path in directory.glob('exported*')))
+        emit(**record)
+        if loaded['launches'] != 12 or eager_launches['resblock'] != 12 or \
+                not within or exported_audio.shape != (1, 1, 8192) or \
+                record['files'] != ['exported.pt', 'exported.pt2']:
+            raise AssertionError('the exported program is wrong')
+
+        rng = np.random.default_rng(17)
+        k1_error = check_blocks(torch, rng, resblock, device, [
+            (frames, channels, KERNEL_SIZES, ((1, frames),))
+            for frames, channels in stage_shapes(config, EXPORT_FRAMES)],
+            'export_check')
+
+        # The pack CLI on the main path's features under the cache's names
+        prefix = directory / 'cache' / 'utterance'
+        prefix.parent.mkdir()
+        loudness, pitch, periodicity, ppg = (
+            value.float().cpu().numpy() for value in features)
+        np.save(f'{prefix}-loudness.npy', loudness)
+        np.save(f'{prefix}-viterbi-pitch.npy', pitch)
+        np.save(f'{prefix}-viterbi-periodicity.npy', periodicity)
+        np.save(f'{prefix}-ppg.npy', ppg)
+        start = time.perf_counter()
+        result = subprocess.run(
+            [sys.executable, '-m', 'promonet_tpu_torch.data.pack',
+             '--prefixes', str(prefix), str(prefix), '--output_files',
+             str(directory / 'packed-cli.npy'),
+             str(directory / 'packed-cli.csv'), '--speaker', '3'],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        pack_wall = time.perf_counter() - start
+        if result.returncode:
+            raise AssertionError(
+                f'the pack CLI exited {result.returncode}:\n'
+                f'{result.stderr[-4000:]}')
+        expected = port.data.pack.from_features(
+            loudness, pitch, periodicity, ppg, speaker=3, config=config)[0]
+        written = np.load(directory / 'packed-cli.npy')
+        rows = np.loadtxt(
+            directory / 'packed-cli.csv', delimiter=',', skiprows=1)
+        header = (directory / 'packed-cli.csv').read_text().splitlines()[0]
+        record = dict(
+            phase='pack', wall_s=pack_wall, shape=list(written.shape),
+            npy_equal=bool(np.array_equal(written, expected.numpy())),
+            csv_max_abs_err=float(np.abs(
+                rows[:, 1:].T - expected.numpy()).max()),
+            header_is_labels=header.split(',') == ['time'] + export.labels(
+                config))
+        emit(**record)
+        if not record['npy_equal'] or not record['header_is_labels'] or \
+                record['csv_max_abs_err'] > 1e-5 * max(
+                    1., float(np.abs(expected.numpy()).max())):
+            raise AssertionError('the pack CLI wrote other values')
+    return {'program': loaded['launches'], 'eager': eager_launches}, k1_error
+
+
+def cargan_path(torch, port, device, config, features, generator):
+    """Phase 18: CARGAN (the port's HiFi-GAN 512 with the autoregressive
+    encoder, seeded) once in bf16 on the main path's features: 12 K1
+    calls, finite audio of frames * HOPSIZE samples; half a second of the
+    same features through the plain CPU path in float32 with the same
+    weights within 5% relative RMS; returns the launch counts"""
+    from promonet_tpu_torch.models import cargan
+    from promonet_tpu_torch.ops import resblock, viterbi
+    loudness, pitch, periodicity, ppg = (
+        value if value.dim() == 3 else value[None] for value in features)
+    with torch.inference_mode():
+        inputs = generator.prepare_features(
+            loudness, pitch.reshape(1, -1), periodicity.reshape(1, -1), ppg)
+        global_features = generator.prepare_global_features(
+            torch.tensor([3], device=device), torch.ones(1, device=device),
+            torch.ones(1, device=device))
+    model = port.models.init.seeded(cargan.CARGAN(
+        inputs.shape[-1], global_features.shape[-1], config), 11)
+    reference = cargan.CARGAN(
+        inputs.shape[-1], global_features.shape[-1], config)
+    reference.load_state_dict(model.state_dict())
+    model = model.to(device).eval()
+    rng = np.random.default_rng(18)
+    previous = torch.from_numpy(
+        (0.1 * rng.standard_normal((1, 1, config.CARGAN_INPUT_SIZE))
+         ).astype(np.float32)).to(device)
+
+    def forward():
+        with torch.inference_mode():
+            return model(inputs, global_features, previous, torch.bfloat16)
+
+    audio, seconds, launches = timed_call(torch, forward)
+    frames = inputs.shape[1]
+    half = int(0.5 * config.SAMPLE_RATE) // config.HOPSIZE
+    with torch.inference_mode():
+        card = model(inputs[:, :half], global_features, previous,
+                     torch.bfloat16).float().cpu()
+        cpu = reference(
+            inputs[:, :half].float().cpu(), global_features.float().cpu(),
+            previous.cpu())
+    relative_rms = float(
+        (card - cpu).pow(2).mean().sqrt() / cpu.pow(2).mean().sqrt())
+    record = dict(
+        phase='cargan', frames=frames, seconds=seconds, launches=launches,
+        samples=audio.shape[1], finite=bool(torch.isfinite(audio).all()),
+        audio_relative_rms_err=relative_rms,
+        ms=elapsed_ms(torch, forward, repeats=3, warmup=1))
+    emit(**record)
+    if launches != {'resblock': 12, 'viterbi': 0, 'viterbi_logfreq': 0} or \
+            not record['finite'] or \
+            tuple(audio.shape) != (1, frames * config.HOPSIZE, 1) or \
+            relative_rms >= 0.05:
+        raise AssertionError('CARGAN is wrong on the card')
+    return launches
 
 
 def main():
@@ -2268,7 +2782,20 @@ def main():
     k1_error = max(k1_error, k1_training_error)
     k2_error = max(k2_error, k2_training_error)
 
-    # 16. Kernel times at the main path's shapes
+    # 16 to 18. FARGAN training, the exported program and the pack CLI,
+    # CARGAN
+    path_launches['fargan_training'] = fargan_training_path(
+        torch, port, device, config, pitch_model, ppg_model)
+    path_launches['export'], k1_export_error = export_path(
+        torch, port, device, config, features, generator)
+    k1_error = max(k1_error, k1_export_error)
+    path_launches['cargan'] = cargan_path(
+        torch, port, device, config, features, generator)
+    emit(phase='later_paths', launches={
+        name: path_launches[name]
+        for name in ('fargan_training', 'export', 'cargan')})
+
+    # 19. Kernel times at the main path's shapes
     k1 = dict(ms=0., plain_ms=0., library_ms=0., bound_ms=0.)
     bound_by_kind = {'operations': 0., 'bytes': 0.}
     for frames, channels in shapes:

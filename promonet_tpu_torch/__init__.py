@@ -19,7 +19,12 @@ promonet_tpu_torch.{preprocess,edit,synthesize,evaluate}`), and GAN
 training and speaker adaptation (`train`, `models.Discriminator`,
 `loss`, the chunked `data.Dataset` path, `data.loader`, `data.augment`,
 `adapt.speaker`, `evaluate.datasets(adapt=True)`, `python -m
-promonet_tpu_torch.{train,adapt}`). Each Pallas kernel of
+promonet_tpu_torch.{train,adapt}`; FARGAN's training route), the WORLD
+baseline (`baseline.world`) and its evaluation, packed features and the
+exported packed-inference program (`models.export`, `data.pack`),
+CARGAN (`models.cargan`), and the dataset command lines (`python -m
+promonet_tpu_torch.{partition,data.preprocess,data.pack,models.export}`).
+Each Pallas kernel of
 the JAX package is a hand-written CUDA kernel here (`csrc/`), beside a
 plain PyTorch version that serves CPU tensors. Entry points run on the
 GPU unless called with device='cpu'.

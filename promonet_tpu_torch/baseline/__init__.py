@@ -1,6 +1,6 @@
 """Baseline vocoders (counterpart of `promonet_tpu/baseline`)
 
-`mels` reconstructs speech from spectrograms alone. The WORLD baseline
-(`promonet_tpu/baseline/world.py`) is not ported.
+`mels` reconstructs speech from spectrograms alone; `world` is the WORLD
+DSP vocoder, analysis, edits and synthesis in numpy on the host.
 """
-from . import mels
+from . import mels, world

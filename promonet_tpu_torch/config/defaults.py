@@ -1,12 +1,13 @@
 """Default configuration values of the PyTorch port.
 
-A copy of the constants that the editing chain reads from the JAX
-package's defaults (`promonet_tpu/config/defaults.py`). Names and values
-are identical, so the same override files (`configs/*.py`,
-`runs/<run>/<config>.py`) configure both packages. Constants of parts
-that are not ported yet (training, discriminators) are left out; an
-override file may still set them, and they are carried on the `Config`
-object unread. Every directory the port writes (the dataset cache, its
+A copy of the constants that the port reads from the JAX package's
+defaults (`promonet_tpu/config/defaults.py`). Names and values are
+identical, so the same override files (`configs/*.py`,
+`runs/<run>/<config>.py`) configure both packages. Constants the port
+does not read (the TPU's device-resident data and dispatch settings, the
+FARGAN_* settings the JAX generator ignores) are left out; an override
+file may still set them, and they are carried on the `Config` object
+unread. Every directory the port writes (the dataset cache, its
 partitions, evaluation artefacts and results) lies under `data/` at the
 root of the repository, outside the JAX package.
 """
@@ -190,13 +191,21 @@ INPUT_FEATURES = ['loudness', 'pitch', 'periodicity', 'ppg']
 # Negative-side slope of every leaky ReLU
 LRELU_SLOPE = .1
 
-# Vocoder backbone: 'hifigan', 'fargan' or 'vocos' ('cargan' is not
-# ported)
+# Vocoder backbone: 'hifigan', 'fargan' or 'vocos'; 'world' selects the
+# WORLD baseline (baseline/world.py) in evaluation. As in the JAX package,
+# the generator does not build 'cargan': `models.cargan.CARGAN` is a
+# module of its own
 MODEL = 'hifigan'
 
 # CARGAN: waveform lookback window feeding the autoregressive encoder
 # (NUM_PREVIOUS_SAMPLES when MODEL is 'cargan')
 CARGAN_INPUT_SIZE = 2 * HOPSIZE
+
+# CARGAN: encoder MLP width
+CARGAN_HIDDEN_SIZE = 256
+
+# CARGAN: channels the encoder contributes to the backbone input
+CARGAN_OUTPUT_SIZE = 128
 
 # FARGAN: frames of history available to the pitch-period lookback
 # (NUM_PREVIOUS_SAMPLES when MODEL is 'fargan'). The JAX package's other

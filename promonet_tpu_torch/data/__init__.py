@@ -1,7 +1,7 @@
 # bucket_frames first: the modules below import the preprocessing, which
 # imports it from here
 from .collate import bucket_frames, collate
-from . import augment, dataset, native, preprocess, synthetic
+from . import augment, dataset, native, pack, preprocess, synthetic
 from .dataset import Dataset
 from .loader import Loader, loader
 from .sampler import Sampler

@@ -11,6 +11,12 @@ Artefacts follow the JAX package's layout:
     config.EVAL_DIR/subjective/<condition>/<dataset>-<speaker>-<utterance>-<condition>.wav
     config.RESULTS_DIR/<CONFIG>/<dataset>/{results,<speaker>}.json
 
+Under MODEL='world' (configs/baselines/world.py) the WORLD baseline
+generates each job from the stem's wav on the host (`baseline.world`),
+with the edit's pitch and, for a stretch, the exact-length grid of the
+edit; its audio is then preprocessed again on the device as every
+model's is.
+
 With adaptation (`adapt`), the speakers are those of the dataset's
 adaptation partition: each speaker's `train-adapt-NN` partition first
 fine-tunes the base generator (`train`, ADAPTATION_STEPS more steps, in
@@ -36,6 +42,7 @@ that synchronises with the card, and reported with its real-time factor.
 Before each timed phase one job per bucket runs under `warmup`, so the
 kernels' first loads and cuDNN's first plans are not in the timed phases.
 """
+import contextlib
 import json
 
 import numpy as np
@@ -48,7 +55,7 @@ from .. import edit
 from .. import load
 from .. import preprocess
 from .. import synthesize
-from ..baseline import mels as mels_baseline
+from ..baseline import mels as mels_baseline, world as world_baseline
 from ..data import Dataset, bucket_frames
 from ..preprocess import text as text_module
 from ..utils import audio as audio_module
@@ -98,10 +105,6 @@ def datasets(
         datasets = [config.TRAINING_DATASET]
     if adapt is None:
         adapt = config.ADAPTATION
-    if config.MODEL == 'world':
-        raise NotImplementedError(
-            'The WORLD baseline (baseline/world.py) is not ported yet '
-            '(ROADMAP.md §1 item 4)')
 
     aggregate = {}
     for name in datasets:
@@ -119,9 +122,13 @@ def datasets(
         run_config = config.replace(INFERENCE_FRAME_BUCKETS=list(
             _coarse_bucket_ladder(name, stems_by_speaker, config)))
         timer = Timer(device)
-        with timer.phase('load'):
-            models = _models(None if adapt else checkpoint, run_config,
-                             device, generator=not adapt)
+        # WORLD has no generator to load: as in the JAX package, no 'load'
+        # phase (the extractors load untimed)
+        world = config.MODEL == 'world'
+        with contextlib.nullcontext() if world else timer.phase('load'):
+            models = _models(
+                None if adapt else checkpoint, run_config, device,
+                generator=not (adapt or world))
         include_wer = text_module.available(run_config)
         dataset_metrics = _condition_metrics(include_wer, run_config)
         speaker_index = (
@@ -320,13 +327,27 @@ def _run_conditions(
             spectrogram, generator, speaker_index, job['spec'][3],
             job['spec'][4], device)).to(device)
 
-    if config.SPECTROGRAM_ONLY:
+    def generate_world(job):
+        frames, out_frames = job['frames'], job['edited_frames']
+        # A stretch samples the exact-length grid over the input's frames
+        grid = None
+        if job['spec'][1] is not None:
+            grid = torch.linspace(0., frames - 1, out_frames).numpy()
+        job['generated'] = torch.from_numpy(world_baseline.from_audio(
+            load.audio(cache / f'{job["stem"]}.wav', config),
+            grid=grid,
+            pitch=job['edited'][1][..., :out_frames].cpu().numpy(),
+            config=config)).to(device)
+
+    if config.SPECTROGRAM_ONLY or config.MODEL == 'world':
+        generate_job = (
+            generate_mels if config.SPECTROGRAM_ONLY else generate_world)
         with timer.phase('warmup'):
             for job in representatives(jobs, output_bucket):
-                generate_mels(job)
+                generate_job(job)
         with timer.phase('generate'):
             for job in jobs:
-                generate_mels(job)
+                generate_job(job)
     else:
         groups = {}
         for job in jobs:

@@ -1,5 +1,6 @@
 from . import bridge, core, discriminator, init
-from . import fargan, vocos
+from . import cargan, export, fargan, vocos
+from .cargan import CARGAN
 from .discriminator import Discriminator
 from .generator import Generator, MelGenerator
 from .hifigan import HiFiGAN

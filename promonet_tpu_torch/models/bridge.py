@@ -13,8 +13,8 @@ in), which keeps the GRU's gate order r, z, n. Every leaf must be used
 exactly once: an unmapped or left-over leaf raises.
 
 Only the generator (with any of its backbones and either speaker
-conditioning), the pitch CNN, the PPG encoder and the speaker encoder
-have weights for inference. The harmonics path, the 'dsp' pitch front
+conditioning), CARGAN, the pitch CNN, the PPG encoder and the speaker
+encoder have weights for inference. The harmonics path, the 'dsp' pitch front
 end and both Viterbi decodes have no parameters, so there is no
 converter for them.
 
@@ -152,23 +152,25 @@ def generator_state_dict(params, materialize=True):
     return leaves.finish(state)
 
 
-def _hifigan(leaves):
+def _hifigan(leaves, path='backbone', name='backbone'):
+    """A HiFi-GAN's leaves under `path` → the port's HiFiGAN state under
+    `name`"""
     state = {
-        'backbone.input_conv.weight': _conv(leaves, 'backbone/Conv1d_0'),
-        'backbone.input_conv.bias': leaves.take('backbone/Conv1d_0/bias'),
-        'backbone.global_conv.weight': _conv(leaves, 'backbone/Conv1d_1'),
-        'backbone.global_conv.bias': leaves.take('backbone/Conv1d_1/bias'),
-        'backbone.output_conv.weight': _conv(leaves, 'backbone/Conv1d_2'),
+        f'{name}.input_conv.weight': _conv(leaves, f'{path}/Conv1d_0'),
+        f'{name}.input_conv.bias': leaves.take(f'{path}/Conv1d_0/bias'),
+        f'{name}.global_conv.weight': _conv(leaves, f'{path}/Conv1d_1'),
+        f'{name}.global_conv.bias': leaves.take(f'{path}/Conv1d_1/bias'),
+        f'{name}.output_conv.weight': _conv(leaves, f'{path}/Conv1d_2'),
     }
     stage = 0
     while leaves.has(
-            f'backbone/MultiReceptiveFieldFusion_{stage}/'
+            f'{path}/MultiReceptiveFieldFusion_{stage}/'
             'WNConvTranspose1d_0/kernel_v'):
-        prefix = f'backbone/MultiReceptiveFieldFusion_{stage}'
+        prefix = f'{path}/MultiReceptiveFieldFusion_{stage}'
         parts, bias = _wn_conv_transpose(
             leaves, f'{prefix}/WNConvTranspose1d_0')
-        _put(state, f'backbone.stages.{stage}.upsample.weight', parts)
-        state[f'backbone.stages.{stage}.upsample.bias'] = bias
+        _put(state, f'{name}.stages.{stage}.upsample.weight', parts)
+        state[f'{name}.stages.{stage}.upsample.bias'] = bias
         block = 0
         while leaves.has(
                 f'{prefix}/ResidualBlock_0/Block_{block}/WNConv1d_0/bias'):
@@ -181,14 +183,15 @@ def _hifigan(leaves):
                     leaves,
                     f'{prefix}/ResidualBlock_0/Block_{block}/WNConv1d_{conv}'))
                 conv += 1
-            name = f'backbone.stages.{stage}.blocks.{block}'
+            block_name = f'{name}.stages.{stage}.blocks.{block}'
             if leaves.materialize:
-                state[f'{name}.weight'] = np.stack([w for w, _ in convs])
+                state[f'{block_name}.weight'] = np.stack(
+                    [w for w, _ in convs])
             else:
-                _put(state, f'{name}.weight', {
+                _put(state, f'{block_name}.weight', {
                     suffix: np.stack([parts[suffix] for parts, _ in convs])
                     for suffix in ('_v', '_g')})
-            state[f'{name}.bias'] = np.stack([b for _, b in convs])
+            state[f'{block_name}.bias'] = np.stack([b for _, b in convs])
             block += 1
         stage += 1
     return state
@@ -249,6 +252,21 @@ def _vocos(leaves):
         state[f'{name}.gamma'] = leaves.take(f'{path}/gamma')
         block += 1
     return state
+
+
+def cargan_state_dict(params):
+    """`promonet_tpu.models.CARGAN` params → `models.cargan.CARGAN` state:
+    the autoregressive encoder's three dense layers and the HiFi-GAN
+    (effective weights)"""
+    leaves = _Leaves(params)
+    state = {}
+    for i in range(3):
+        path = f'Autoregressive_0/Dense_{i}'
+        state[f'autoregressive.layers.{i}.weight'] = _dense(leaves, path)
+        state[f'autoregressive.layers.{i}.bias'] = leaves.take(
+            f'{path}/bias')
+    state.update(_hifigan(leaves, 'HiFiGAN_0', 'hifigan'))
+    return leaves.finish(state)
 
 
 def discriminator_state_dict(params):

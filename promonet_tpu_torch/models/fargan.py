@@ -10,8 +10,14 @@ operations per subframe.
 Rounding follows the JAX package: the conditioning, the recurrent states
 and every layer compute in the generator's dtype, while the sample
 history is float32 and each subframe's samples are rounded to the dtype
-and widened back into it. Inference only: the additive noise of training
-is not ported.
+and widened back into it.
+
+Two routes run the frame loop. Inference writes each subframe into one
+preallocated sample buffer. Training (`train=True`) keeps every
+subframe's output and rolls the history by concatenation, as the JAX
+package's scan does, so that autograd can run back through it; it also
+takes the additive training noise (`additive_noise`) from a noise source
+the caller passes, eleven draws per subframe in the JAX package's order.
 """
 import math
 
@@ -19,6 +25,37 @@ import torch
 from torch import nn
 
 from .modules import Dense, cast
+
+
+# Noise draws per subframe on the training route: the conditioning slice,
+# the previous subframe, the pitch lookback, the framewise conv's output,
+# each GRU's state into its GLU and that GLU's output, the skip path's tanh
+NOISE_SITES = 11
+
+
+def additive_noise(x, noise):
+    """clip(x + (u - .5) / 127, -1, 1), the JAX package's training noise
+
+    `noise(x)` gives u, uniform on [0, 1) in x's shape and dtype; the
+    arithmetic runs in x's dtype, as `promonet_tpu/models/fargan.py:19-25`
+    does it.
+    """
+    return torch.clamp(x + (1. / 127.) * (noise(x) - .5), -1., 1.)
+
+
+class Uniform:
+    """The default noise source: uniform draws from a `torch.Generator`
+
+    The generator lies on the device of the tensors it is asked for.
+    """
+
+    def __init__(self, generator):
+        self.generator = generator
+
+    def __call__(self, x):
+        return torch.rand(
+            x.shape, dtype=x.dtype, device=x.device,
+            generator=self.generator)
 
 
 def lookback_index(period, history, subframe_size):
@@ -124,7 +161,7 @@ class SubframeNetwork(nn.Module):
 
     def forward(
         self, features, pitch_lookback, previous_subframe, states,
-        dtype=torch.float32
+        dtype=torch.float32, noise=None
     ):
         """
         Arguments
@@ -133,13 +170,22 @@ class SubframeNetwork(nn.Module):
                 back, in dtype
             previous_subframe: (B, subframe_size) last samples, in dtype
             states: (gru1, gru2, gru3, fwconv) recurrent states, in dtype
+            noise: None, or the training noise's source (`additive_noise`),
+                drawn NOISE_SITES times in the JAX package's order
 
         Returns
-            (signal (B, subframe_size) in dtype, states)
+            (signal (B, subframe_size) in dtype, states): the GRU states
+            are carried without noise, the subframe's input with it
         """
+        def noisy(x):
+            return x if noise is None else additive_noise(x, noise)
+
+        features = noisy(features)
+        previous_subframe = noisy(previous_subframe)
+        pitch_lookback = noisy(pitch_lookback)
         subframe_input = torch.cat(
             (features, previous_subframe, pitch_lookback), -1)
-        fwconv_out = self.fwconv(subframe_input, states[3], dtype)
+        fwconv_out = noisy(self.fwconv(subframe_input, states[3], dtype))
         # Without gain normalisation the JAX package's pitch gains are
         # ones, and multiplying by one changes nothing
         pitch_lookback = pitch_lookback[:, 2:-2]
@@ -150,12 +196,12 @@ class SubframeNetwork(nn.Module):
                 state,
                 torch.cat((gru_in, pitch_lookback, previous_subframe), -1),
                 dtype)
-            gru_in = glu(state, dtype)
+            gru_in = noisy(glu(noisy(state), dtype))
             gru_states.append(state)
             gru_outs.append(gru_in)
         skip = torch.cat(
             gru_outs + [fwconv_out, pitch_lookback, previous_subframe], -1)
-        skip = self.skip_glu(torch.tanh(self.skip(skip, dtype)), dtype)
+        skip = self.skip_glu(noisy(torch.tanh(self.skip(skip, dtype))), dtype)
         output = torch.tanh(self.output(skip, dtype))
         return output, (*gru_states, subframe_input)
 
@@ -197,7 +243,8 @@ class FARGAN(nn.Module):
 
     def forward(
         self, features, global_features, dtype=torch.float32,
-        initial_states=None, return_states=False
+        initial_states=None, return_states=False, previous_samples=None,
+        train=False, noise=None
     ):
         """
         Arguments
@@ -207,6 +254,14 @@ class FARGAN(nn.Module):
                 recurrent states) carried from an earlier call, whose
                 frames this call continues; None starts from zeros
             return_states: also return the final carry
+            previous_samples: (B, 1, S) audio before the first frame,
+                whose last num_previous samples start the history (zeros
+                where there is none); read when initial_states is None
+            train: the training route, which autograd can run back
+                through (see the module)
+            noise: the training noise's source, a callable giving
+                uniform [0, 1) draws in its argument's shape and dtype
+                (`Uniform`); None adds no noise. Read only with train
 
         Returns
             audio (B, T * hopsize, 1) float32 [, final carry]
@@ -230,7 +285,15 @@ class FARGAN(nn.Module):
         if initial_states is None:
             initial_states = self.initial_states(
                 batch, dtype, features.device)
+            if previous_samples is not None:
+                initial_states = (
+                    previous_samples.reshape(batch, -1)[:, -history:].float(),
+                    initial_states[1])
         previous, states = initial_states
+        if train:
+            return self._train_loop(
+                cond, lookback, previous, states, dtype, noise,
+                return_states)
         # The history of subframe i is samples[:, i * size:][:, :history]
         samples = torch.empty(
             (batch, history + frames * self.hopsize), dtype=torch.float32,
@@ -251,4 +314,28 @@ class FARGAN(nn.Module):
         audio = samples[:, history:, None]
         if return_states:
             return audio, (samples[:, -history:], states)
+        return audio
+
+    def _train_loop(
+        self, cond, lookback, previous, states, dtype, noise, return_states
+    ):
+        """The frame loop of the training route: each subframe's output
+        kept, the history rolled by concatenation"""
+        size = self.subframe_size
+        outputs = []
+        for frame in range(cond.shape[1]):
+            index = lookback[:, frame]
+            for subframe in range(self.subframes):
+                output, states = self.subframe(
+                    cond[:, frame, subframe],
+                    torch.gather(previous, 1, index).to(dtype),
+                    previous[:, -size:].to(dtype),
+                    states,
+                    dtype,
+                    noise)
+                outputs.append(output)
+                previous = torch.cat((previous[:, size:], output.float()), -1)
+        audio = torch.cat(outputs, -1).float()[..., None]
+        if return_states:
+            return audio, (previous, states)
         return audio

@@ -44,8 +44,6 @@ class BaseGenerator(nn.Module):
 
     def __init__(self, config, num_features):
         super().__init__()
-        if config.MODEL == 'cargan':
-            raise NotImplementedError("MODEL='cargan' is not ported")
         self.config = config
         self.dtype = (
             torch.bfloat16 if config.PRECISION == 'bfloat16'
@@ -147,7 +145,9 @@ class Generator(BaseGenerator):
         loudness_ratios,
         initial_states=None,
         return_states=False,
-        train=False
+        train=False,
+        previous_samples=None,
+        noise=None
     ):
         """
         Arguments
@@ -163,8 +163,15 @@ class Generator(BaseGenerator):
                 that continues where the last call stopped
                 (`models.fargan.FARGAN.forward`); other backbones ignore
                 them
-            train: the training route (`models.hifigan`): no kernel,
-                differentiable, recomputed under REMAT
+            train: the training route: HiFi-GAN's runs no kernel and is
+                recomputed under REMAT (`models.hifigan`), FARGAN's frame
+                loop is one that autograd runs (`models.fargan`)
+            previous_samples: (B, 1, NUM_PREVIOUS_SAMPLES) audio before
+                the first frame, FARGAN's starting history (zeros where
+                None); other backbones ignore it
+            noise: FARGAN's training noise source (`models.fargan.Uniform`
+                or a callable like it), read with train only; None adds
+                no noise
 
         Returns
             audio: (B, 1, T * HOPSIZE), float32 [, FARGAN's final carry]
@@ -173,13 +180,10 @@ class Generator(BaseGenerator):
         global_features = self.prepare_global_features(
             speakers, spectral_balance_ratios, loudness_ratios)
         if self.config.MODEL == 'fargan':
-            if train:
-                raise NotImplementedError(
-                    "FARGAN's training route (its additive noise) is not "
-                    'ported (ROADMAP.md §1)')
             out = self.backbone(
                 features, global_features, self.dtype,
-                initial_states=initial_states, return_states=return_states)
+                initial_states=initial_states, return_states=return_states,
+                previous_samples=previous_samples, train=train, noise=noise)
             if return_states:
                 return out[0].transpose(1, 2), out[1]
             return out.transpose(1, 2)

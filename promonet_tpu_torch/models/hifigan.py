@@ -16,7 +16,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.resblock import fused_block, pack_weights
+from ..ops.resblock import Packed, fused_block, pack_weights
 from .modules import Conv1d, ConvTranspose1d, leaky_relu
 
 
@@ -70,12 +70,27 @@ class Block(nn.Module):
 
         self._packed = None
 
+    def freeze(self):
+        """Pack the parameters once into buffers that `packed` serves from
+        from then on, whatever the parameters become: for a program
+        exported with `torch.export`, which holds them as constants"""
+        with torch.no_grad():
+            packed = pack_weights(self.weight, self.bias)
+        self.register_buffer('packed_tiles', packed.tensor, persistent=False)
+        self.register_buffer(
+            'packed_biases', packed.biases, persistent=False)
+
     def packed(self):
         """The parameters packed for the CUDA kernel, made once
 
         Rebuilt when either parameter was written to (`load_state_dict`,
-        an optimizer step) or lies elsewhere (`.to(device)`).
+        an optimizer step) or lies elsewhere (`.to(device)`), unless the
+        Block was frozen (`freeze`).
         """
+        if hasattr(self, 'packed_tiles'):
+            return Packed(
+                self.packed_tiles, self.packed_biases, self.weight.shape[2],
+                self.weight.shape[1])
         key = (
             self.weight.device, self.weight.data_ptr(), self.weight._version,
             self.bias.data_ptr(), self.bias._version)

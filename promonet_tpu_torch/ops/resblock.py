@@ -10,6 +10,13 @@ its source note gives the design and the bound. It reads the weights
 from the tiles of `pack_weights`, which a caller makes once per set of
 parameters (`models.hifigan.Block` caches them).
 
+On the card a Block goes through the registered operator
+`torch.ops.promonet_tpu_torch.resblock`, over the packed tiles: eager
+calls and `torch.export` programs reach the kernel the same way (an
+exported program holds the tiles as constants, and its op resolves in
+any process that imports this package). The operator's CPU version is
+`reference_block` over the unpacked tiles.
+
 Both versions round where the JAX package does
 (`conv1d_shifted_dots`, `reference_block`): products accumulate in
 float32, the sum is cast to the compute dtype, and the bias and the
@@ -190,6 +197,35 @@ def unpack_weights(packed):
             packed.biases[:, :channels].contiguous())
 
 
+@torch.library.custom_op('promonet_tpu_torch::resblock', mutates_args=())
+def resblock_op(
+    x: torch.Tensor,
+    tiles: torch.Tensor,
+    biases: torch.Tensor,
+    channels: int,
+    dilations: list[int],
+    slope: float,
+    row_tiles: int
+) -> torch.Tensor:
+    """A Block over a `Packed`'s tensors (`tiles`, `biases`), as an
+    operator: the kernel for CUDA tensors, `reference_block` over the
+    unpacked bf16 weights for CPU ones; row_tiles 0 chooses"""
+    packed = Packed(tiles, biases, channels, tiles.shape[3])
+    if x.device.type == 'cuda':
+        return _block_cuda(
+            x, packed, tuple(dilations), slope, row_tiles or None)
+    if x.device.type == 'cpu':
+        weights, biases = unpack_weights(packed)
+        return reference_block(
+            x, weights, biases, tuple(dilations), slope, x.dtype)
+    raise ValueError(f'No residual block for device {x.device}')
+
+
+@resblock_op.register_fake
+def _(x, tiles, biases, channels, dilations, slope, row_tiles):
+    return torch.empty_like(x)
+
+
 def fused_block(x, weights, biases, dilations, slope, tiles=None):
     """Dilated residual block (HiFi-GAN Block semantics)
 
@@ -208,13 +244,23 @@ def fused_block(x, weights, biases, dilations, slope, tiles=None):
     Returns
         (B, T, C) in x's dtype
     """
-    if x.device.type == 'cpu':
-        if isinstance(weights, Packed):
-            weights, biases = unpack_weights(weights)
+    if x.device.type == 'cpu' and not isinstance(weights, Packed):
         return reference_block(x, weights, biases, dilations, slope, x.dtype)
-    if x.device.type == 'cuda':
-        return _block_cuda(x, weights, biases, dilations, slope, tiles)
-    raise ValueError(f'No residual block for device {x.device}')
+    if not isinstance(weights, Packed):
+        if x.device.type != 'cuda':
+            raise ValueError(f'No residual block for device {x.device}')
+        if weights.dim() != 4 or tuple(biases.shape) != (
+                weights.shape[0], weights.shape[3]):
+            raise ValueError(
+                f'Weights of shape {tuple(weights.shape)} and biases of '
+                f'shape {tuple(biases.shape)} do not fit')
+        if biases.device != weights.device:
+            raise ValueError(
+                f'Block parameters on {weights.device} and {biases.device}')
+        weights = pack_weights(weights, biases)
+    return resblock_op(
+        x, weights.tensor, weights.biases, weights.channels,
+        list(dilations), float(slope), tiles or 0)
 
 
 # Calls of the CUDA path; each is one C call that launches
@@ -242,22 +288,13 @@ def choose_tiles(padded):
     return 2 if padded <= 128 else 1
 
 
-def _block_cuda(x, weights, biases, dilations, slope, tiles):
+def _block_cuda(x, weights, dilations, slope, tiles):
+    """The kernel's launch over a `Packed`'s weights"""
     batch, frames, channels = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f'Residual block kernel takes bfloat16, got {x.dtype}')
     if batch < 1 or frames < 1:
         raise ValueError(f'Residual block over an empty {tuple(x.shape)}')
-    if not isinstance(weights, Packed):
-        if weights.dim() != 4 or tuple(biases.shape) != (
-                weights.shape[0], weights.shape[3]):
-            raise ValueError(
-                f'Weights of shape {tuple(weights.shape)} and biases of '
-                f'shape {tuple(biases.shape)} do not fit')
-        if biases.device != weights.device:
-            raise ValueError(
-                f'Block parameters on {weights.device} and {biases.device}')
-        weights = pack_weights(weights, biases)
     k = weights.kernel_size
     if weights.tensor.shape[0] != 2 * len(dilations) or k % 2 == 0 \
             or weights.channels != channels:

@@ -1,7 +1,8 @@
 """A-weighted loudness (counterpart of `preprocess/loudness.py`)"""
+import numpy as np
 import torch
 
-from ..ops import spectral, stft as stft_ops
+from ..ops import grid as grid_ops, spectral, stft as stft_ops
 
 
 def perceptual_weights(config):
@@ -41,3 +42,61 @@ def band_average(loudness, bands):
                 dim=-2)
             for band in range(int(bands))],
         dim=-2)
+
+
+###############################################################################
+# Loudness matching
+###############################################################################
+
+
+def scale(audio, target_loudness, config):
+    """Scale audio (1, T) to a target A-weighted loudness in dB
+
+    `target_loudness` is (..., F or 1, frames); several bands are averaged
+    first. The gain is db_to_ratio of the difference, passed to `shift`,
+    which converts it once more, as the JAX package's `scale` does; then
+    `limit`.
+    """
+    target_loudness = torch.as_tensor(target_loudness, device=audio.device)
+    if target_loudness.dim() >= 2 and target_loudness.shape[-2] > 1:
+        target_loudness = target_loudness.mean(dim=-2, keepdim=True)
+    loudness = from_audio(audio, config, bands=1)
+    gain = 2 ** ((target_loudness - loudness) / 10)
+    return limit(shift(audio, gain))
+
+
+def shift(audio, value):
+    """Shift the loudness of audio (1, T) by value dB: a scalar, or one
+    per frame, interpolated to the samples (align_corners=False)"""
+    gain = 2 ** (torch.as_tensor(value, device=audio.device) / 10)
+    if gain.numel() > 1:
+        samples, frames = audio.shape[-1], gain.shape[-1]
+        positions = (torch.arange(
+            samples, dtype=torch.float32, device=audio.device) + 0.5) * (
+                frames / samples) - 0.5
+        gain = grid_ops.sample(gain, torch.clamp(positions, 0, frames - 1))
+    return gain * audio
+
+
+def limit(audio, delay=40, attack_coef=.9, release_coef=.9995, threshold=.99):
+    """Feed-forward limiter of audio (1, T), against clipping
+
+    A sample-by-sample recurrence in float32 (a loop on the host), as the
+    JAX package's scan computes it.
+    """
+    samples = np.pad(
+        audio.detach().cpu().numpy().astype(np.float32)[0], (0, delay - 1))
+    line = np.zeros(delay, np.float32)
+    index = 0
+    gain, envelope = np.float32(1.), np.float32(0.)
+    attack, release = np.float32(attack_coef), np.float32(release_coef)
+    rest, bound = np.float32(1 - attack_coef), np.float32(threshold)
+    out = np.empty_like(samples)
+    for i, sample in enumerate(samples):
+        line[index] = sample
+        index = (index + 1) % delay
+        envelope = max(abs(sample), envelope * release)
+        target = bound / envelope if envelope > bound else np.float32(1.)
+        gain = gain * attack + target * rest
+        out[i] = line[index] * gain
+    return torch.from_numpy(out[None, delay - 1:]).to(audio.device)

@@ -33,11 +33,21 @@ ported) warm-starts the generator with v = weight and g = its norm,
 keeps its step, and starts the discriminators and both optimizers anew,
 as the JAX package does with a release checkpoint.
 
+FARGAN trains on its own training route: a frame loop that autograd runs
+back through, with the JAX package's additive noise drawn from a noise
+source. By default that is a `torch.Generator` on the training device
+seeded with RANDOM_SEED + 1 when the `State` is made, one stream over the
+run's steps, which starts anew when a run resumes, as the JAX package's
+key chain does. The first HOPSIZE * FARGAN_PREVIOUS_FRAMES samples of
+each item's audio start FARGAN's history (`previous_samples_of`), and
+they replace that many generated samples before any loss or
+discriminator sees the output; validation passes them too.
+
 Only the host loader feeds the card: the JAX package's device-resident
 data, dispatch fusion, conv lowering, pause and notify hooks are TPU or
-host-service matters and are not ported. The HiFi-GAN and Vocos
+host-service matters and are not ported. The HiFi-GAN, FARGAN and Vocos
 generators train, over interpretable features or (SPECTROGRAM_ONLY, the
-`MelGenerator`) over spectrograms; FARGAN raises (ROADMAP.md §1).
+`MelGenerator`) over spectrograms.
 """
 import sys
 import time
@@ -53,7 +63,7 @@ from .. import device as device_module
 from .. import load
 from .. import preprocess
 from ..evaluate.metrics import Metrics
-from ..models import Discriminator, Generator, MelGenerator, init
+from ..models import Discriminator, Generator, MelGenerator, fargan, init
 from ..models.modules import materialize, normed, split
 from ..utils import checkpoint as checkpoint_module
 from ..utils import cli
@@ -180,10 +190,10 @@ def train(
 
 
 def _check_trainable(config):
-    if config.MODEL not in ('hifigan', 'vocos'):
-        raise NotImplementedError(
-            f'Training MODEL={config.MODEL!r} is not ported: the HiFi-GAN '
-            'and Vocos generators train (ROADMAP.md §1)')
+    if config.MODEL not in ('hifigan', 'fargan', 'vocos'):
+        raise ValueError(
+            f'Generator model {config.MODEL} is not defined: the HiFi-GAN, '
+            'FARGAN and Vocos generators train')
 
 
 ###############################################################################
@@ -202,6 +212,8 @@ class State:
     trainable: {name: float32 leaf tensor}, (v, g) for each weight-normed
         weight (`models.modules.split`)
     discriminator: the `models.Discriminator`
+    rng: the `torch.Generator` of FARGAN's training noise, on the
+        generator's device, seeded with RANDOM_SEED + 1
     """
 
     def __init__(self, generator, discriminator, config):
@@ -218,6 +230,9 @@ class State:
             [self.trainable[name] for name in self.names], config)
         self.discriminator_optimizer = build_optimizer(
             list(discriminator.parameters()), config)
+        self.rng = torch.Generator(
+            device=self.trainable[self.names[0]].device).manual_seed(
+                config.RANDOM_SEED + 1)
 
     def effective(self):
         """The generator's effective weights, as a state dict"""
@@ -299,6 +314,15 @@ def to_device(batch, device):
             tensor = tensor.pin_memory()
         out[name] = tensor.to(device, non_blocking=True)
     return out
+
+
+def previous_samples_of(batch, config):
+    """FARGAN's starting history from a batch: the first HOPSIZE *
+    FARGAN_PREVIOUS_FRAMES samples of its audio; None for the other
+    backbones"""
+    if config.MODEL != 'fargan':
+        return None
+    return batch['audio'][..., :config.HOPSIZE * config.FARGAN_PREVIOUS_FRAMES]
 
 
 def generator_args(batch, config):
@@ -432,17 +456,34 @@ def _apply(optimizer, parameters, gradients):
         parameter.grad = None
 
 
-def train_step(state, batch, discriminate=True, adversarial=True):
+def train_step(state, batch, discriminate=True, adversarial=True,
+               noise=None):
     """One GAN step on a batch of device tensors; returns the metrics,
-    float32 scalar tensors on the device, by the JAX package's names"""
+    float32 scalar tensors on the device, by the JAX package's names
+
+    noise: FARGAN's training noise source (`models.fargan.Uniform` or a
+        callable like it); None draws from `state.rng`. Other backbones
+        take none.
+    """
     config = state.config
     loss = loss_module
     discriminator = state.discriminator
     audio = batch['audio']
 
+    kwargs = {'train': True}
+    previous_samples = previous_samples_of(batch, config)
+    if previous_samples is not None:
+        kwargs.update(
+            previous_samples=previous_samples,
+            noise=fargan.Uniform(state.rng) if noise is None else noise)
     generated = functional_call(
         state.generator, state.effective(), generator_args(batch, config),
-        {'train': True})
+        kwargs)
+    if previous_samples is not None:
+        # The history is given, not generated: the losses see it as it is
+        generated = torch.cat(
+            (previous_samples, generated[..., previous_samples.shape[-1]:]),
+            -1)
     metrics = {}
 
     # Discriminators, against the detached output
@@ -546,7 +587,11 @@ def evaluate(directory, step, state, valid_loader, extractors,
         length = int(batch['lengths'][0])
         batch = to_device(batch, device)
         with torch.inference_mode():
-            generated = generator(*generator_args(batch, config))
+            previous_samples = previous_samples_of(batch, config)
+            generated = generator(
+                *generator_args(batch, config),
+                **({} if previous_samples is None else
+                   {'previous_samples': previous_samples}))
             mask = torch.arange(
                 batch['spectrograms'].shape[-1], device=device) < length
             mel_total += float(loss_module.mel(

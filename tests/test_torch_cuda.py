@@ -1,6 +1,8 @@
 """The port's CUDA kernels held against their plain PyTorch versions, and
 on the paths that call them: zero-shot batches (K1 at B = 8 with x-vector
-speakers) and the three CLIs as processes of their own.
+speakers), the three CLIs as processes of their own, the registered
+residual-block operator inside an exported program, CARGAN, and FARGAN's
+training step (no K1; the card against the CPU with the same noise).
 
 These need an NVIDIA GPU and `nvcc`; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it also runs where only
@@ -17,6 +19,8 @@ the chain leaves an error at the scale of the operands (seen on the
 card: 0.0625 on an element below 1, RMS 1.4). chip_smoke.py uses the
 same bound and checks that a zeroed bias breaks it.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -776,3 +780,100 @@ def test_resblock_kernel_serves_validation_shapes(device, frames):
             plain = resblock.reference_block(
                 x, weights, biases, DILATIONS, 0.1, torch.bfloat16).float()
             assert _within_bound(kernel, plain), (length, channels)
+
+
+###############################################################################
+# This slice's call sites: the registered operator, the exported program,
+# CARGAN and FARGAN's training route on the card
+###############################################################################
+
+
+def test_resblock_operator_is_the_kernel(device):
+    """`torch.ops.promonet_tpu_torch.resblock` over packed tiles launches
+    the kernel once and gives `fused_block`'s result"""
+    x, weights, biases = _resblock_problem(device, 2, 300, 128, 7)
+    packed = resblock.pack_weights(weights, biases)
+    launches = resblock.fused_block.launches
+    through_op = torch.ops.promonet_tpu_torch.resblock(
+        x, packed.tensor, packed.biases, 128, list(DILATIONS), 0.1, 0)
+    assert resblock.fused_block.launches == launches + 1
+    assert torch.equal(
+        through_op, resblock.fused_block(x, packed, None, DILATIONS, 0.1))
+
+
+def test_exported_program_launches_the_kernel(device, tmp_path):
+    """A full-width bf16 generator exported on the card: the loaded
+    program's twelve Blocks are K1 calls, within the bf16 bound of eager
+    `packed_inference`"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.models import export
+    config = port.config.load()
+    generator = port.models.init.seeded(port.models.Generator(config), 0)
+    checkpoint = tmp_path / 'generator-00000001.pt'
+    port.utils.checkpoint.save(checkpoint, generator.state_dict(), step=1)
+    export.from_file_to_file(
+        checkpoint, tmp_path / 'exported', config=config, device=device)
+    program = torch.export.load(tmp_path / 'exported.pt2').module()
+    sets, _ = _zero_shot_inputs(32, 1, 5)
+    loudness, pitch, periodicity, ppg = (
+        torch.from_numpy(value)[None].to(device) for value in sets[0])
+    x = export.pack_features(
+        loudness, pitch[0], periodicity[0], ppg,
+        torch.tensor([3], device=device), torch.ones(1, device=device),
+        torch.ones(1, device=device), config)
+    eager_generator = port.load.generator(checkpoint, config, device)
+    launches = resblock.fused_block.launches
+    with torch.inference_mode():
+        audio = program(x)
+    assert resblock.fused_block.launches == launches + 12
+    with torch.inference_mode():
+        eager = export.packed_inference(eager_generator, x)
+    assert audio.shape == (1, 1, 8192)
+    assert _within_bound(audio.float(), eager.float())
+
+
+def test_cargan_blocks_are_the_kernel(device):
+    """CARGAN at full width in bf16: 12 K1 calls, finite audio"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.models import cargan
+    config = port.config.load()
+    model = port.models.init.seeded(
+        cargan.CARGAN(100, 130, config), 0).to(device).eval()
+    rng = np.random.default_rng(6)
+    features = torch.from_numpy(rng.standard_normal(
+        (1, 64, 100)).astype(np.float32)).to(device)
+    global_features = torch.from_numpy(rng.standard_normal(
+        (1, 1, 130)).astype(np.float32)).to(device)
+    launches = resblock.fused_block.launches
+    with torch.inference_mode():
+        audio = model(features, global_features, dtype=torch.bfloat16)
+    assert resblock.fused_block.launches == launches + 12
+    assert audio.shape == (1, 64 * 256, 1)
+    assert torch.isfinite(audio).all()
+
+
+def test_fargan_step_on_the_card_matches_the_cpu(device):
+    """One narrow float32 FARGAN step (configs/fargan.py) on the card and
+    on the CPU, the same noise drawn for both: no K1 launch, every loss
+    within 1e-4 relative"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.train import core
+    config = port.config.load(
+        Path(__file__).resolve().parent.parent / 'configs' / 'fargan.py'
+    ).replace(
+        BATCH_SIZE=2, CHUNK_SIZE=1536, PRECISION='float32')
+    batch = _train_batch(config, 2, frames=6)
+    losses = []
+    for where in ('cpu', device):
+        generator = torch.Generator().manual_seed(7)
+        state = core.create_state(config, where)
+        launches = resblock.fused_block.launches
+        metrics = core.train_step(
+            state, core.to_device(batch, where),
+            noise=lambda x, generator=generator: torch.rand(
+                x.shape, generator=generator, dtype=x.dtype).to(x.device))
+        assert resblock.fused_block.launches == launches
+        losses.append({name: float(value) for name, value in metrics.items()
+                       if name.startswith('loss/')})
+    for name, value in losses[0].items():
+        assert abs(losses[1][name] - value) <= 1e-4 * abs(value), name

@@ -151,14 +151,43 @@ def test_undersized_training_partition_raises(corpus, tmp_path):
 
 
 def test_fargan_does_not_train_yet(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        port.train(tmp_path, 'synthetic', steps=1,
-                   config=corpus.replace(MODEL='fargan'), device='cpu')
-    generator = port.models.Generator(
-        port.config.load(ROOT / 'configs' / 'fargan.py'))
+    """FARGAN trains now (the name predates its training route): a run of
+    configs/fargan.py's losses at the corpus's narrow size takes two steps,
+    validates with the item's own first samples as history, and resumes;
+    its generator's training route runs on a batch"""
+    config = corpus.replace(
+        MODEL='fargan', MEL_LOSS=False, SPECTRAL_CONVERGENCE_LOSS=True,
+        CHUNK_SIZE=1536, ADVERSARIAL_LOSS_START_STEP=1)
+    directory = tmp_path / 'run'
+    losses = []
+    for steps in (2, 3):
+        port.train(
+            directory, 'synthetic', steps=steps, config=config, device='cpu',
+            callback=lambda step, metrics: losses.append((step, {
+                name: float(value) for name, value in metrics.items()})))
+    assert [step for step, _ in losses] == [0, 1, 2]
+    assert all(np.isfinite(value) for _, metrics in losses
+               for value in metrics.values())
+    # Adversarial terms from step 1, no mel loss
+    assert 'loss/generator/feature-matching' not in losses[0][1]
+    assert 'loss/generator/feature-matching' in losses[1][1]
+    assert 'loss/generator/spectral-convergence' in losses[0][1]
+    assert not any('mels' in name for name in losses[0][1]
+                   if name.startswith('loss/'))
+    payload = port.utils.checkpoint.load(directory / 'generator-00000003.pt')
+    assert payload['step'] == 3 and payload['optimizer']['step'] == 3
+    assert any(name.endswith('fwconv.dense.weight_v')
+               for name in payload['trainable'])
+    records = [json.loads(line) for line in
+               (directory / 'metrics.jsonl').read_text().splitlines()]
+    assert np.isfinite(records[1]['validation/mels'])
+    generator = port.load.generator(
+        directory / 'generator-00000003.pt', config, 'cpu')
     batch = core.to_device(_batch(0), 'cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        generator(*core.generator_args(batch, corpus), train=True)
+    audio = generator(
+        *core.generator_args(batch, config), train=True,
+        previous_samples=core.previous_samples_of(batch, config))
+    assert audio.shape == (2, 1, 8 * 256) and audio.requires_grad
 
 
 def test_prune_keeps_the_newest_and_the_intervals(tmp_path):

@@ -358,7 +358,8 @@ def test_bridge_uses_every_leaf_of_the_backbone(monkeypatch, model, overrides):
 
 def test_generator_refuses_what_is_not_ported():
     config = port.config.load()
-    with pytest.raises(NotImplementedError, match='cargan'):
+    # The JAX generator does not build CARGAN either (models.cargan does)
+    with pytest.raises(ValueError, match='Generator model cargan is not'):
         port.models.Generator(config.replace(MODEL='cargan'))
     # A spectrogram-only configuration is MelGenerator's
     mels = config.replace(SPECTROGRAM_ONLY=True, HIFIGAN_UPSAMPLE_INITIAL_SIZE=16)
