@@ -190,7 +190,34 @@ Phases, each printed as one JSON line with the seconds since the start
    features: 12 residual-block calls, finite audio of frames * HOPSIZE
    samples; half a second of those features through the plain CPU path
    in float32 with the same weights within 5% relative RMS.
-19. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
+19. extractor training: `preprocess.pitch.train` (batch 128, tone
+   fraction 0.4), `preprocess.ppg.train` and `preprocess.speaker.train`
+   (batch 32, window 256) on the card at the JAX package's widths and
+   learning rates over phase 15's corpus, 1500, 1200 and 1200 steps (cut
+   from 4000, 3000 and 4000), each step timed by CUDA events (median and
+   spread, steps/s, the time the default steps would take), peak memory,
+   the first and last loss (the last must be below the first, all
+   finite), the held-out figures, and no kernel launch.
+20. extractor card against CPU: for each extractor one float32 step on
+   the card and on the CPU from the same seeded weights on the same batch
+   of its training examples (the JAX package's batch size): the loss
+   within 1e-4 relative, 99% of the updated weights within 1e-4 of their
+   leaf's largest magnitude and every one within 2 lr more.
+21. trained extractors: the three checkpoints of phase 19 read by
+   `load.pitch_model`, `load.ppg_model` and `load.speaker_encoder`, then
+   `preprocess.from_audio` with the speaker feature on the main path's
+   audio: one K2 decode, its pitch equal to K2's decode of the trained
+   CNN's posteriorgram, whose path equals the plain scan's on the card and
+   on the CPU; finite outputs, a unit x-vector, and the pitch error in
+   cents against the signal's known pitch (reported).
+22. from_probabilities: `ops.viterbi.from_probabilities` on (896, 256)
+   probabilities under its default uniform transition (every predecessor
+   ties) and under the pitch decode's: one K2 launch each, paths equal
+   to the plain scan's on the card and on the CPU; then 1, 300 and 384
+   samples (the reflect padding's repair) through the spectrogram, the
+   log-mels, the loudness (from 256 samples) and the trained speaker
+   encoder on the card: finite, on the card, of the JAX package's shapes.
+23. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
    launches per Block, the time at each number of row tiles per thread
    block, the plain chain's and cuDNN's times and the bound; K2 with the
    forward pass and the backtrace timed apart, microseconds per frame
@@ -200,8 +227,10 @@ Phases, each printed as one JSON line with the seconds since the start
    the reading behind the split's cost per destination and the cycles of
    each section of a frame. Then per
    kernel its
-   launches, error (for the two decodes the largest difference in state
-   index seen in this run's checks), time, plain and library times and
+   launches (the main path's; K2's other call sites, phases 21 and 22,
+   apart under `launches_by_call_site`), error (for the two decodes the
+   largest difference in state index seen in this run's checks), time,
+   plain and library times and
    the card's bound, the seconds of each phase, then the card's name and
    power limit, then {"ok": true, "device": ...} as the last line.
 
@@ -1585,325 +1614,324 @@ def train_batch(config, seed, batch=2, frames=8):
 
 
 def training_path(torch, port, device, config, pitch_model, ppg_model,
-                  edited):
+                  edited, directory):
     """Phase 15: GAN training at full width on a formant corpus made on
     the card, its validation through K1 and K2, auto-resume, an edit
     served from the trained checkpoint, K1 and K2 held to their plain
     versions at the validation's shapes, one narrow float32 step on the
     card against the same step on the CPU, and one speaker's adaptation
-    through evaluate.datasets(adapt=True); returns the launch counts of
-    each part and the largest K1 error at batch 1 and K2 state
-    difference of these checks"""
+    through evaluate.datasets(adapt=True); its corpus, cache and runs go
+    to `directory`, which the extractors' phases read after it; returns
+    the launch counts of each part and the largest K1 error at batch 1 and
+    K2 state difference of these checks"""
     from promonet_tpu_torch.ops import resblock, viterbi
     train_core = sys.modules['promonet_tpu_torch.train.core']
     hopsize = config.HOPSIZE
-    (ROOT / 'build').mkdir(exist_ok=True)
     launches = {}
-    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as directory:
-        directory = Path(directory)
-        checkpoints = directory / 'checkpoints'
-        checkpoint = port.utils.checkpoint
-        checkpoint.save(checkpoints / 'pitch-00000001.pt',
-                        pitch_model.state_dict(), step=1)
-        checkpoint.save(checkpoints / 'ppg-00000002.pt',
-                        ppg_model.state_dict(), step=2)
-        train_config = config.replace(
-            CACHE_DIR=directory / 'cache',
-            PARTITIONS_DIR=directory / 'partitions',
-            AUGMENT_DIR=directory / 'augmentations',
-            RESULTS_DIR=directory / 'results', EVAL_DIR=directory / 'eval',
-            RUNS_DIR=directory / 'runs', CHECKPOINTS_DIR=checkpoints,
-            NUM_WORKERS=8)
+    directory = Path(directory)
+    checkpoints = directory / 'checkpoints'
+    checkpoint = port.utils.checkpoint
+    checkpoint.save(checkpoints / 'pitch-00000001.pt',
+                    pitch_model.state_dict(), step=1)
+    checkpoint.save(checkpoints / 'ppg-00000002.pt',
+                    ppg_model.state_dict(), step=2)
+    train_config = config.replace(
+        CACHE_DIR=directory / 'cache',
+        PARTITIONS_DIR=directory / 'partitions',
+        AUGMENT_DIR=directory / 'augmentations',
+        RESULTS_DIR=directory / 'results', EVAL_DIR=directory / 'eval',
+        RUNS_DIR=directory / 'runs', CHECKPOINTS_DIR=checkpoints,
+        NUM_WORKERS=8)
 
-        # The corpus, augmented on the host and preprocessed on the card:
-        # one K2 decode per wav, originals and copies
-        reset_launch_counts(resblock, viterbi)
+    # The corpus, augmented on the host and preprocessed on the card:
+    # one K2 decode per wav, originals and copies
+    reset_launch_counts(resblock, viterbi)
+    start = time.perf_counter()
+    cache = port.data.synthetic.create(
+        'synthetic', **TRAIN_CORPUS, preprocess=False,
+        config=train_config, device=device)
+    synthesized = time.perf_counter() - start
+    port.data.augment.datasets(['synthetic'], train_config)
+    augmented = time.perf_counter() - start - synthesized
+    port.data.preprocess.core.datasets(
+        ['synthetic'], pitch_model=pitch_model, ppg_model=ppg_model,
+        config=train_config, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches['corpus'] = launch_counts(resblock, viterbi)
+    wavs = sorted(cache.glob('*/*.wav'))
+    train_items = len(port.data.Dataset(
+        'synthetic', 'train', train_config))
+    partition = port.load.partition('synthetic', False, train_config)
+    record = dict(
+        phase='training_corpus', seconds=seconds,
+        synthesis_seconds=synthesized, augmentation_seconds=augmented,
+        wavs=len(wavs), train_stems=len(partition['train']),
+        train_items=train_items, valid_stems=len(partition['valid']),
+        launches=launches['corpus'])
+    emit(**record)
+    if len(partition['train']) < train_config.BATCH_SIZE or \
+            len(wavs) != 3 * TRAIN_CORPUS['speakers'] * \
+            TRAIN_CORPUS['utterances'] or \
+            launches['corpus']['viterbi'] != len(wavs):
+        raise AssertionError('the training corpus is wrong')
+
+    # Training, each step timed on the card, its launches counted; the
+    # validation's launches and HiFi-GAN inputs counted apart
+    steps, validations, inputs_seen, captured = [], [], set(), []
+    last = {}
+    original_step = train_core.train_step
+    original_evaluate = train_core.evaluate
+    original_from_audio = port.preprocess.from_audio
+
+    def timed_step(*args, **kwargs):
+        start_event = torch.cuda.Event(enable_timing=True)
+        end_event = torch.cuda.Event(enable_timing=True)
+        start_event.record()
+        metrics = original_step(*args, **kwargs)
+        end_event.record()
+        steps.append({'events': (start_event, end_event)})
+        return metrics
+
+    def callback(step, metrics):
+        torch.cuda.synchronize()
+        now = launch_counts(resblock, viterbi)
+        steps[-1].update(
+            step=step, launches={k: now[k] - last.get(k, 0) for k in now},
+            losses={k: float(v) for k, v in metrics.items()
+                    if k.startswith('loss/')})
+        last.update(now)
+
+    def counted_evaluate(*args, **kwargs):
+        before = launch_counts(resblock, viterbi)
+        calls = [0]
+
+        def hook(module, inputs, output):
+            if isinstance(module, port.models.HiFiGAN):
+                calls[0] += 1
+                inputs_seen.add(tuple(inputs[0].shape[:2]))
+
+        handle = torch.nn.modules.module.register_module_forward_hook(
+            hook)
         start = time.perf_counter()
-        cache = port.data.synthetic.create(
-            'synthetic', **TRAIN_CORPUS, preprocess=False,
-            config=train_config, device=device)
-        synthesized = time.perf_counter() - start
-        port.data.augment.datasets(['synthetic'], train_config)
-        augmented = time.perf_counter() - start - synthesized
-        port.data.preprocess.core.datasets(
-            ['synthetic'], pitch_model=pitch_model, ppg_model=ppg_model,
-            config=train_config, device=device)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        launches['corpus'] = launch_counts(resblock, viterbi)
-        wavs = sorted(cache.glob('*/*.wav'))
-        train_items = len(port.data.Dataset(
-            'synthetic', 'train', train_config))
-        partition = port.load.partition('synthetic', False, train_config)
-        record = dict(
-            phase='training_corpus', seconds=seconds,
-            synthesis_seconds=synthesized, augmentation_seconds=augmented,
-            wavs=len(wavs), train_stems=len(partition['train']),
-            train_items=train_items, valid_stems=len(partition['valid']),
-            launches=launches['corpus'])
-        emit(**record)
-        if len(partition['train']) < train_config.BATCH_SIZE or \
-                len(wavs) != 3 * TRAIN_CORPUS['speakers'] * \
-                TRAIN_CORPUS['utterances'] or \
-                launches['corpus']['viterbi'] != len(wavs):
-            raise AssertionError('the training corpus is wrong')
-
-        # Training, each step timed on the card, its launches counted; the
-        # validation's launches and HiFi-GAN inputs counted apart
-        steps, validations, inputs_seen, captured = [], [], set(), []
-        last = {}
-        original_step = train_core.train_step
-        original_evaluate = train_core.evaluate
-        original_from_audio = port.preprocess.from_audio
-
-        def timed_step(*args, **kwargs):
-            start_event = torch.cuda.Event(enable_timing=True)
-            end_event = torch.cuda.Event(enable_timing=True)
-            start_event.record()
-            metrics = original_step(*args, **kwargs)
-            end_event.record()
-            steps.append({'events': (start_event, end_event)})
-            return metrics
-
-        def callback(step, metrics):
-            torch.cuda.synchronize()
-            now = launch_counts(resblock, viterbi)
-            steps[-1].update(
-                step=step, launches={k: now[k] - last.get(k, 0) for k in now},
-                losses={k: float(v) for k, v in metrics.items()
-                        if k.startswith('loss/')})
-            last.update(now)
-
-        def counted_evaluate(*args, **kwargs):
-            before = launch_counts(resblock, viterbi)
-            calls = [0]
-
-            def hook(module, inputs, output):
-                if isinstance(module, port.models.HiFiGAN):
-                    calls[0] += 1
-                    inputs_seen.add(tuple(inputs[0].shape[:2]))
-
-            handle = torch.nn.modules.module.register_module_forward_hook(
-                hook)
-            start = time.perf_counter()
-            try:
-                original_evaluate(*args, **kwargs)
-                torch.cuda.synchronize()
-            finally:
-                handle.remove()
-            after = launch_counts(resblock, viterbi)
-            validations.append(dict(
-                seconds=time.perf_counter() - start, generator_calls=calls[0],
-                launches={k: after[k] - before[k] for k in after}))
-            last.update(after)
-
-        def capture(audio, *args, **kwargs):
-            if not captured:
-                captured.append(audio.detach().clone())
-            return original_from_audio(audio, *args, **kwargs)
-
-        run = train_config.RUNS_DIR / train_config.CONFIG
-        train_core.train_step = timed_step
-        train_core.evaluate = counted_evaluate
-        port.preprocess.from_audio = capture
         try:
-            results = {}
-            for label, stop in (('train', 3), ('resume', 5)):
-                reset_launch_counts(resblock, viterbi)
-                last.clear()
-                first = len(steps)
-                torch.cuda.reset_peak_memory_stats()
-                start = time.perf_counter()
-                state = port.train(
-                    run, 'synthetic', steps=stop, config=train_config,
-                    device=device, callback=callback)
-                torch.cuda.synchronize()
-                results[label] = dict(
-                    seconds=time.perf_counter() - start,
-                    steps=[entry['step'] for entry in steps[first:]],
-                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            original_evaluate(*args, **kwargs)
+            torch.cuda.synchronize()
         finally:
-            train_core.train_step = original_step
-            train_core.evaluate = original_evaluate
-            port.preprocess.from_audio = original_from_audio
-        step_ms = [
-            entry['events'][0].elapsed_time(entry['events'][1])
-            for entry in steps]
-        # The first step of each call builds cuDNN's plans: not timed
-        timed = [ms for entry, ms in zip(steps, step_ms)
-                 if entry['step'] not in (0, 3)]
-        finite = all(np.isfinite(value) for entry in steps
-                     for value in entry['losses'].values())
-        record = dict(
-            phase='training', batch=train_config.BATCH_SIZE,
-            chunk=train_config.CHUNK_SIZE, precision=train_config.PRECISION,
-            remat=train_config.REMAT,
-            width=train_config.HIFIGAN_UPSAMPLE_INITIAL_SIZE,
-            discriminators=[type(d).__name__ for d in
-                            state.discriminator.discriminators],
-            runs=results, step_ms=step_ms, median_step_ms=float(
-                np.median(timed)),
-            steps_per_second=1e3 / float(np.median(timed)),
-            losses={entry['step']: entry['losses']['loss/generator/total']
-                    for entry in steps},
-            discriminator_losses={
-                entry['step']: entry['losses']['loss/discriminator/total']
+            handle.remove()
+        after = launch_counts(resblock, viterbi)
+        validations.append(dict(
+            seconds=time.perf_counter() - start, generator_calls=calls[0],
+            launches={k: after[k] - before[k] for k in after}))
+        last.update(after)
+
+    def capture(audio, *args, **kwargs):
+        if not captured:
+            captured.append(audio.detach().clone())
+        return original_from_audio(audio, *args, **kwargs)
+
+    run = train_config.RUNS_DIR / train_config.CONFIG
+    train_core.train_step = timed_step
+    train_core.evaluate = counted_evaluate
+    port.preprocess.from_audio = capture
+    try:
+        results = {}
+        for label, stop in (('train', 3), ('resume', 5)):
+            reset_launch_counts(resblock, viterbi)
+            last.clear()
+            first = len(steps)
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            state = port.train(
+                run, 'synthetic', steps=stop, config=train_config,
+                device=device, callback=callback)
+            torch.cuda.synchronize()
+            results[label] = dict(
+                seconds=time.perf_counter() - start,
+                steps=[entry['step'] for entry in steps[first:]],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        train_core.train_step = original_step
+        train_core.evaluate = original_evaluate
+        port.preprocess.from_audio = original_from_audio
+    step_ms = [
+        entry['events'][0].elapsed_time(entry['events'][1])
+        for entry in steps]
+    # The first step of each call builds cuDNN's plans: not timed
+    timed = [ms for entry, ms in zip(steps, step_ms)
+             if entry['step'] not in (0, 3)]
+    finite = all(np.isfinite(value) for entry in steps
+                 for value in entry['losses'].values())
+    record = dict(
+        phase='training', batch=train_config.BATCH_SIZE,
+        chunk=train_config.CHUNK_SIZE, precision=train_config.PRECISION,
+        remat=train_config.REMAT,
+        width=train_config.HIFIGAN_UPSAMPLE_INITIAL_SIZE,
+        discriminators=[type(d).__name__ for d in
+                        state.discriminator.discriminators],
+        runs=results, step_ms=step_ms, median_step_ms=float(
+            np.median(timed)),
+        steps_per_second=1e3 / float(np.median(timed)),
+        losses={entry['step']: entry['losses']['loss/generator/total']
                 for entry in steps},
-            finite=finite,
-            step_launches=[entry['launches'] for entry in steps],
-            validations=validations, validation_inputs=sorted(inputs_seen),
-            checkpoints=sorted(path.name for path in run.glob('*.pt')))
-        emit(**record)
-        launches['training_steps'] = [entry['launches'] for entry in steps]
-        launches['validation'] = validations
-        resumed = checkpoint.load(run / 'generator-00000005.pt')
-        items = train_config.DEFAULT_EVALUATION_STEPS
-        if not finite or results['train']['steps'] != [0, 1, 2] or \
-                results['resume']['steps'] != [3, 4] or \
-                resumed['step'] != 5 or resumed['optimizer']['step'] != 5:
-            raise AssertionError('training did not run or resume as it must')
-        if any(entry['launches']['resblock'] for entry in steps):
-            raise AssertionError('a training step launched the block kernel')
-        if len(validations) != 1 or validations[0]['launches'] != {
-                'resblock': 12 * validations[0]['generator_calls'],
-                'viterbi': items, 'viterbi_logfreq': 0} or \
-                validations[0]['generator_calls'] != items:
-            raise AssertionError(f'validation launched {validations}')
+        discriminator_losses={
+            entry['step']: entry['losses']['loss/discriminator/total']
+            for entry in steps},
+        finite=finite,
+        step_launches=[entry['launches'] for entry in steps],
+        validations=validations, validation_inputs=sorted(inputs_seen),
+        checkpoints=sorted(path.name for path in run.glob('*.pt')))
+    emit(**record)
+    launches['training_steps'] = [entry['launches'] for entry in steps]
+    launches['validation'] = validations
+    resumed = checkpoint.load(run / 'generator-00000005.pt')
+    items = train_config.DEFAULT_EVALUATION_STEPS
+    if not finite or results['train']['steps'] != [0, 1, 2] or \
+            results['resume']['steps'] != [3, 4] or \
+            resumed['step'] != 5 or resumed['optimizer']['step'] != 5:
+        raise AssertionError('training did not run or resume as it must')
+    if any(entry['launches']['resblock'] for entry in steps):
+        raise AssertionError('a training step launched the block kernel')
+    if len(validations) != 1 or validations[0]['launches'] != {
+            'resblock': 12 * validations[0]['generator_calls'],
+            'viterbi': items, 'viterbi_logfreq': 0} or \
+            validations[0]['generator_calls'] != items:
+        raise AssertionError(f'validation launched {validations}')
 
-        # One profiled step: the card's idle share
-        loader = port.data.loader(
-            'synthetic', 'train', train_config, native=True)
-        batch = train_core.to_device(next(iter(loader)), device)
-        profiled = device_busy(torch, lambda: train_core.train_step(
-            state, batch), top=12)
-        emit(phase='training_profile', profiled_step=profiled,
-             idle_share=idle_share(profiled))
+    # One profiled step: the card's idle share
+    loader = port.data.loader(
+        'synthetic', 'train', train_config, native=True)
+    batch = train_core.to_device(next(iter(loader)), device)
+    profiled = device_busy(torch, lambda: train_core.train_step(
+        state, batch), top=12)
+    emit(phase='training_profile', profiled_step=profiled,
+         idle_share=idle_share(profiled))
 
-        # An edit served from the trained checkpoint, through K1
-        trained = port.load.generator(
-            run / 'generator-00000005.pt', train_config, device)
-        reset_launch_counts(resblock, viterbi)
-        output = port.synthesize.from_features(
-            *edited, generator=trained, speaker=3, device=device)
+    # An edit served from the trained checkpoint, through K1
+    trained = port.load.generator(
+        run / 'generator-00000005.pt', train_config, device)
+    reset_launch_counts(resblock, viterbi)
+    output = port.synthesize.from_features(
+        *edited, generator=trained, speaker=3, device=device)
+    torch.cuda.synchronize()
+    launches['trained_edit'] = launch_counts(resblock, viterbi)
+    frames = edited[1].shape[-1]
+    record = dict(
+        phase='training_edit', launches=launches['trained_edit'],
+        samples=output.shape[-1], finite=bool(np.isfinite(output).all()))
+    emit(**record)
+    if not record['finite'] or output.shape != (1, frames * hopsize) or \
+            launches['trained_edit']['resblock'] != 12:
+        raise AssertionError('the trained checkpoint does not serve')
+
+    # K1 at every (batch, frames) validation fed it (batches of one,
+    # so without the zeroed-bias control, as phase 14 at batch 1), and
+    # the same stages at batch 2 with the control; K2 on the card's and
+    # the CPU's pitch observations of one validation item's audio and
+    # a random one of that length
+    rng = np.random.default_rng(16)
+    k1_checks = [
+        (frames, channels, KERNEL_SIZES, ((batch, frames), (2, frames)))
+        for batch, bucket in sorted(inputs_seen)
+        for frames, channels in stage_shapes(train_config, bucket)]
+    k1_error = check_blocks(
+        torch, rng, resblock, device, k1_checks, 'training_check')
+    pitch_module = port.preprocess.pitch
+    cpu_pitch = port.preprocess.PitchCNN()
+    cpu_pitch.load_state_dict(
+        {k: v.cpu() for k, v in pitch_model.state_dict().items()})
+    cpu_pitch.eval()
+    waveform = captured[0].reshape(1, -1)
+    with torch.inference_mode():
+        observations = [
+            torch.log_softmax(pitch_module.cnn_posteriorgram(
+                model, waveform.to(where), hopsize).float(), -1).cpu()
+            for model, where in ((pitch_model, device),
+                                 (cpu_pitch, 'cpu'))]
+    transition = viterbi.triangular_transition(
+        pitch_module.CANDIDATES, pitch_module.TRANSITION_WIDTH).to(device)
+    initial = torch.full(
+        (pitch_module.CANDIDATES,),
+        -float(np.log(np.float32(pitch_module.CANDIDATES))),
+        device=device)
+    length = observations[0].shape[0]
+    k2_error = check_decodes(viterbi, device, [
+        ('validation_card', observations[0], transition),
+        ('validation_cpu', observations[1], transition),
+        ('validation_random', torch.log_softmax(torch.from_numpy(
+            3 * rng.standard_normal((length, pitch_module.CANDIDATES))
+        ).float(), -1), transition)], initial, 'training_check')
+    emit(phase='training_kernels', validation_inputs=sorted(inputs_seen),
+         k1_checks=sum(len(kernel_sizes) * len(sizes)
+                       for _, _, kernel_sizes, sizes in k1_checks),
+         k1_max_abs_err_at_batch_1=k1_error,
+         k2_frames=length, k2_max_state_difference=k2_error)
+
+    # One narrow float32 step on the card against the same step on the
+    # CPU, from the same seeded state
+    narrow = config.replace(
+        HIFIGAN_UPSAMPLE_INITIAL_SIZE=32, CHUNK_SIZE=2048, BATCH_SIZE=2,
+        PRECISION='float32')
+    narrow_batch = train_batch(narrow, 17)
+    metrics = {}
+    for where in ('cpu', device):
+        narrow_state = train_core.create_state(narrow, where)
+        metrics[str(where)] = {
+            name: float(value) for name, value in train_core.train_step(
+                narrow_state, train_core.to_device(
+                    narrow_batch, torch.device(where))).items()}
+    card, cpu = metrics[str(device)], metrics['cpu']
+    relative = {
+        name: abs(card[name] - value) / max(abs(value), 1e-12)
+        for name, value in cpu.items() if name.startswith('loss/')}
+    worst = max(relative, key=relative.get)
+    emit(phase='training_reference', losses_card=card, losses_cpu=cpu,
+         max_relative_difference=relative[worst], worst=worst)
+    if relative[worst] > 1e-4:
+        raise AssertionError('the card trains otherwise than the CPU')
+
+    # One speaker's adaptation: ADAPTATION_STEPS 2 from the trained
+    # checkpoint (step 5), then its test-adapt stems evaluated
+    adapt_config = train_config.replace(
+        BATCH_SIZE=ADAPT_BATCH_SIZE, STEPS=5, ADAPTATION_STEPS=2)
+    port.data.synthetic.create(
+        'adaptation', **ADAPT_CORPUS, preprocess=False,
+        config=adapt_config, device=device)
+    port.data.augment.datasets(['adaptation'], adapt_config)
+    port.data.preprocess.core.datasets(
+        ['adaptation'], pitch_model=pitch_model, ppg_model=ppg_model,
+        config=adapt_config, device=device)
+    port.partition.adaptation_partitions('adaptation', 2, adapt_config)
+    phases, adapt_inputs, restore = counted_phases(torch, port)
+    try:
         torch.cuda.synchronize()
-        launches['trained_edit'] = launch_counts(resblock, viterbi)
-        frames = edited[1].shape[-1]
-        record = dict(
-            phase='training_edit', launches=launches['trained_edit'],
-            samples=output.shape[-1], finite=bool(np.isfinite(output).all()))
-        emit(**record)
-        if not record['finite'] or output.shape != (1, frames * hopsize) or \
-                launches['trained_edit']['resblock'] != 12:
-            raise AssertionError('the trained checkpoint does not serve')
-
-        # K1 at every (batch, frames) validation fed it (batches of one,
-        # so without the zeroed-bias control, as phase 14 at batch 1), and
-        # the same stages at batch 2 with the control; K2 on the card's and
-        # the CPU's pitch observations of one validation item's audio and
-        # a random one of that length
-        rng = np.random.default_rng(16)
-        k1_checks = [
-            (frames, channels, KERNEL_SIZES, ((batch, frames), (2, frames)))
-            for batch, bucket in sorted(inputs_seen)
-            for frames, channels in stage_shapes(train_config, bucket)]
-        k1_error = check_blocks(
-            torch, rng, resblock, device, k1_checks, 'training_check')
-        pitch_module = port.preprocess.pitch
-        cpu_pitch = port.preprocess.PitchCNN()
-        cpu_pitch.load_state_dict(
-            {k: v.cpu() for k, v in pitch_model.state_dict().items()})
-        cpu_pitch.eval()
-        waveform = captured[0].reshape(1, -1)
-        with torch.inference_mode():
-            observations = [
-                torch.log_softmax(pitch_module.cnn_posteriorgram(
-                    model, waveform.to(where), hopsize).float(), -1).cpu()
-                for model, where in ((pitch_model, device),
-                                     (cpu_pitch, 'cpu'))]
-        transition = viterbi.triangular_transition(
-            pitch_module.CANDIDATES, pitch_module.TRANSITION_WIDTH).to(device)
-        initial = torch.full(
-            (pitch_module.CANDIDATES,),
-            -float(np.log(np.float32(pitch_module.CANDIDATES))),
-            device=device)
-        length = observations[0].shape[0]
-        k2_error = check_decodes(viterbi, device, [
-            ('validation_card', observations[0], transition),
-            ('validation_cpu', observations[1], transition),
-            ('validation_random', torch.log_softmax(torch.from_numpy(
-                3 * rng.standard_normal((length, pitch_module.CANDIDATES))
-            ).float(), -1), transition)], initial, 'training_check')
-        emit(phase='training_kernels', validation_inputs=sorted(inputs_seen),
-             k1_checks=sum(len(kernel_sizes) * len(sizes)
-                           for _, _, kernel_sizes, sizes in k1_checks),
-             k1_max_abs_err_at_batch_1=k1_error,
-             k2_frames=length, k2_max_state_difference=k2_error)
-
-        # One narrow float32 step on the card against the same step on the
-        # CPU, from the same seeded state
-        narrow = config.replace(
-            HIFIGAN_UPSAMPLE_INITIAL_SIZE=32, CHUNK_SIZE=2048, BATCH_SIZE=2,
-            PRECISION='float32')
-        narrow_batch = train_batch(narrow, 17)
-        metrics = {}
-        for where in ('cpu', device):
-            narrow_state = train_core.create_state(narrow, where)
-            metrics[str(where)] = {
-                name: float(value) for name, value in train_core.train_step(
-                    narrow_state, train_core.to_device(
-                        narrow_batch, torch.device(where))).items()}
-        card, cpu = metrics[str(device)], metrics['cpu']
-        relative = {
-            name: abs(card[name] - value) / max(abs(value), 1e-12)
-            for name, value in cpu.items() if name.startswith('loss/')}
-        worst = max(relative, key=relative.get)
-        emit(phase='training_reference', losses_card=card, losses_cpu=cpu,
-             max_relative_difference=relative[worst], worst=worst)
-        if relative[worst] > 1e-4:
-            raise AssertionError('the card trains otherwise than the CPU')
-
-        # One speaker's adaptation: ADAPTATION_STEPS 2 from the trained
-        # checkpoint (step 5), then its test-adapt stems evaluated
-        adapt_config = train_config.replace(
-            BATCH_SIZE=ADAPT_BATCH_SIZE, STEPS=5, ADAPTATION_STEPS=2)
-        port.data.synthetic.create(
-            'adaptation', **ADAPT_CORPUS, preprocess=False,
-            config=adapt_config, device=device)
-        port.data.augment.datasets(['adaptation'], adapt_config)
-        port.data.preprocess.core.datasets(
-            ['adaptation'], pitch_model=pitch_model, ppg_model=ppg_model,
-            config=adapt_config, device=device)
-        port.partition.adaptation_partitions('adaptation', 2, adapt_config)
-        phases, adapt_inputs, restore = counted_phases(torch, port)
-        try:
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            adapted = port.evaluate.datasets(
-                ['adaptation'], checkpoint=run / 'generator-00000005.pt',
-                adapt=True, config=adapt_config, device=device)['adaptation']
-            torch.cuda.synchronize()
-            adapt_seconds = time.perf_counter() - start
-        finally:
-            restore()
-        launches['adaptation'] = phases
-        adapted_run = (adapt_config.RUNS_DIR / adapt_config.CONFIG / 'adapt' /
-                       'adaptation' / '00')
-        payload = checkpoint.load(adapted_run / 'generator-00000007.pt')
-        objective = adapted['objective']
-        record = dict(
-            phase='adaptation', seconds=adapt_seconds,
-            speakers=sorted(adapted['speakers']), conditions=sorted(objective),
-            run=sorted(path.name for path in adapted_run.glob('*.pt')),
-            step=payload['step'], launches=phases,
-            benchmark=adapted['benchmark'],
-            objective_reconstructed=objective['reconstructed'])
-        emit(**record)
-        if record['speakers'] != ['00'] or payload['step'] != 7 or \
-                len(objective) != 1 + 5 * len(config.EVALUATION_RATIOS) or \
-                not np.isfinite(objective['reconstructed']['ppg']) or any(
-                    counts['resblock'] != 12 * counts['generator_calls']
-                    for counts in phases.values()):
-            raise AssertionError('the adaptation is wrong')
+        start = time.perf_counter()
+        adapted = port.evaluate.datasets(
+            ['adaptation'], checkpoint=run / 'generator-00000005.pt',
+            adapt=True, config=adapt_config, device=device)['adaptation']
+        torch.cuda.synchronize()
+        adapt_seconds = time.perf_counter() - start
+    finally:
+        restore()
+    launches['adaptation'] = phases
+    adapted_run = (adapt_config.RUNS_DIR / adapt_config.CONFIG / 'adapt' /
+                   'adaptation' / '00')
+    payload = checkpoint.load(adapted_run / 'generator-00000007.pt')
+    objective = adapted['objective']
+    record = dict(
+        phase='adaptation', seconds=adapt_seconds,
+        speakers=sorted(adapted['speakers']), conditions=sorted(objective),
+        run=sorted(path.name for path in adapted_run.glob('*.pt')),
+        step=payload['step'], launches=phases,
+        benchmark=adapted['benchmark'],
+        objective_reconstructed=objective['reconstructed'])
+    emit(**record)
+    if record['speakers'] != ['00'] or payload['step'] != 7 or \
+            len(objective) != 1 + 5 * len(config.EVALUATION_RATIOS) or \
+            not np.isfinite(objective['reconstructed']['ppg']) or any(
+                counts['resblock'] != 12 * counts['generator_calls']
+                for counts in phases.values()):
+        raise AssertionError('the adaptation is wrong')
     return launches, k1_error, k2_error
 
 
@@ -2332,6 +2360,322 @@ def cargan_path(torch, port, device, config, features, generator):
             relative_rms >= 0.05:
         raise AssertionError('CARGAN is wrong on the card')
     return launches
+
+
+# Phases 19 to 22: the feature extractors trained on the training phase's
+# corpus (TRAIN_CORPUS) at the JAX package's batch, window and learning
+# rate, the steps cut from its defaults so that the three take about 30 s
+EXTRACTOR_STEPS = dict(pitch=1500, ppg=1200, speaker=1200)
+EXTRACTOR_DEFAULT_STEPS = dict(pitch=4000, ppg=3000, speaker=4000)
+EXTRACTOR_BATCH = dict(
+    pitch=dict(batch_size=128, tone_fraction=0.4),
+    ppg=dict(batch_size=32, window=256),
+    speaker=dict(batch_size=32, window=256))
+EXTRACTOR_RATE = dict(pitch=2e-4, ppg=1e-3, speaker=3e-4)
+# The short inputs of the reflect padding's repair: one sample, and 300
+# and 384, where the padding (384) is not shorter than the input
+SHORT_SAMPLES = (1, 300, 384)
+
+
+def extractor_training_path(torch, port, device, config, directory):
+    """Phase 19: `preprocess.{pitch,ppg,speaker}.train` on the card at the
+    JAX package's batch and window (EXTRACTOR_BATCH) over the training
+    phase's corpus in `directory`, EXTRACTOR_STEPS steps each, every step
+    timed by CUDA events; no kernel launches, finite losses, the last
+    below the first. Returns the config whose CHECKPOINTS_DIR holds the
+    three checkpoints"""
+    import contextlib
+    from promonet_tpu_torch.ops import resblock, viterbi
+    train_config = config.replace(
+        CACHE_DIR=Path(directory) / 'cache',
+        CHECKPOINTS_DIR=Path(directory) / 'extractors')
+    for name, steps in EXTRACTOR_STEPS.items():
+        events = []
+
+        def callback(step, loss):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            events.append((event, loss))
+
+        reset_launch_counts(resblock, viterbi)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        # The trainers' progress lines go to stderr
+        with contextlib.redirect_stdout(sys.stderr):
+            result = getattr(port.preprocess, name).train(
+                'synthetic', steps=steps, config=train_config, device=device,
+                callback=callback, **EXTRACTOR_BATCH[name])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        step_ms = np.array([
+            before.elapsed_time(after)
+            for (before, _), (after, _) in zip(events[:-1], events[1:])])
+        losses = np.array([float(loss) for _, loss in events])
+        median = float(np.median(step_ms))
+        figures = dict(zip(('median_cents', 'voicing_accuracy'), result)) \
+            if name == 'pitch' else {'accuracy': result}
+        record = dict(
+            phase='extractor_training', extractor=name, steps=len(events),
+            **EXTRACTOR_BATCH[name], learning_rate=EXTRACTOR_RATE[name],
+            seconds=seconds, step_ms_median=median,
+            step_ms_p10=float(np.percentile(step_ms, 10)),
+            step_ms_p90=float(np.percentile(step_ms, 90)),
+            steps_per_second=1e3 / median,
+            seconds_at_default_steps=median *
+            EXTRACTOR_DEFAULT_STEPS[name] / 1e3,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            first_loss=float(losses[0]), last_loss=float(losses[-1]),
+            last_100_mean_loss=float(losses[-100:].mean()),
+            launches=launch_counts(resblock, viterbi), **figures)
+        emit(**record)
+        if len(events) != steps or not np.isfinite(losses).all() or \
+                losses[-1] >= losses[0] or any(record['launches'].values()):
+            raise AssertionError(f'the {name} training is wrong')
+    return train_config
+
+
+def extractor_batch(torch, port, name, config):
+    """A batch of the JAX package's size from the training examples of
+    extractor `name`, made on the CPU: a tuple of numpy arrays in the
+    order of its `training_loss`, and the number of speakers"""
+    module = getattr(port.preprocess, name)
+    rng = np.random.default_rng(20)
+    size = EXTRACTOR_BATCH[name]['batch_size']
+    if name == 'pitch':
+        frames, bins, voiced, _ = module.training_examples(
+            np.random.default_rng(config.RANDOM_SEED), 'synthetic', 120000,
+            EXTRACTOR_BATCH[name]['tone_fraction'], config)
+        index = rng.choice(np.flatnonzero(voiced), size)
+        # As the trainer feeds them: through the bf16 bank
+        frames = torch.from_numpy(frames[index]).bfloat16().float().numpy()
+        return (frames, bins[index].astype(np.int64)), None
+    window = EXTRACTOR_BATCH[name]['window']
+    if name == 'ppg':
+        mels, labels, masks = module.training_examples(
+            'synthetic', window, config, 'cpu')
+        index = rng.choice(len(mels), size)
+        return (mels[index], labels[index].astype(np.int64),
+                masks[index].astype(np.float32)), None
+    mels, labels, lengths, speakers = module.training_examples(
+        'synthetic', window, config, 'cpu')
+    index = rng.choice(len(mels), size)
+    return (mels[index], labels[index].astype(np.int64),
+            lengths[index].astype(np.int64)), len(speakers)
+
+
+def extractor_card_vs_cpu(torch, port, device, config):
+    """Phase 20: for each extractor, one float32 training step on the card
+    and the same step on the CPU, from the same seeded weights on the same
+    batch of its training examples: the loss within 1e-4 relative, the
+    updated weights within 1e-4 of each leaf's largest magnitude for 99%
+    of the elements and within 2 lr + that for every one (Adam moves an
+    element whose gradient is within rounding of zero by up to lr either
+    way)"""
+    import copy
+    from promonet_tpu_torch.preprocess import training
+    records = {}
+    for name in EXTRACTOR_STEPS:
+        module = getattr(port.preprocess, name)
+        batch, speakers = extractor_batch(torch, port, name, config)
+        rate = EXTRACTOR_RATE[name]
+        if name == 'pitch':
+            model = module.PitchCNN()
+        elif name == 'ppg':
+            model = module.PPGEncoder(
+                config.NUM_MELS, num_phonemes=config.PPG_CHANNELS)
+        else:
+            model = module.Classifier(
+                speakers, config.NUM_MELS, config.WAVLM_EMBEDDING_CHANNELS)
+        model = port.models.init.seeded(model, config.RANDOM_SEED)
+        losses, weights = [], []
+        for where in (torch.device('cpu'), device):
+            stepped = copy.deepcopy(model).to(where).train()
+            if name == 'speaker':
+                optimizer = torch.optim.Adam(
+                    stepped.parameters(), lr=rate), None
+            else:
+                optimizer = training.adamw_cosine(
+                    stepped.parameters(), rate,
+                    EXTRACTOR_DEFAULT_STEPS[name])
+            loss = module.training_loss(stepped, *(
+                torch.from_numpy(value).to(where) for value in batch))
+            losses.append(float(training.update(loss, *optimizer)))
+            weights.append({key: value.detach().cpu()
+                            for key, value in stepped.state_dict().items()})
+        close, worst = [], 0.
+        for key, value in weights[0].items():
+            scale = float(value.abs().max())
+            error = (weights[1][key] - value).abs()
+            close.append((error <= 1e-4 * scale).flatten())
+            worst = max(worst, float(error.max()) - 1e-4 * scale)
+        records[name] = dict(
+            batch=list(batch[0].shape), loss_cpu=losses[0],
+            loss_card=losses[1],
+            loss_relative_error=abs(losses[1] - losses[0]) / abs(losses[0]),
+            share_of_weights_within_bound=float(
+                torch.cat(close).float().mean()),
+            largest_excess_over_bound=worst, learning_rate=rate)
+    emit(phase='extractor_card_vs_cpu', extractors=records)
+    for name, record in records.items():
+        if record['loss_relative_error'] > 1e-4 or \
+                record['share_of_weights_within_bound'] < .99 or \
+                record['largest_excess_over_bound'] > \
+                2 * record['learning_rate']:
+            raise AssertionError(f'a {name} step on the card is wrong')
+
+
+def trained_extractors_path(torch, port, device, config, audio):
+    """Phase 21: the three checkpoints of phase 19 read by `load` and
+    `preprocess.from_audio` run on the card with them over the main
+    path's audio: one K2 decode, the pitch equal to K2's decode of the
+    trained CNN's posteriorgram, whose path equals the plain scan's on
+    the card and on the CPU; finite loudness, PPG and speaker embedding.
+    Returns the K2 launches of the from_audio call and the largest K2
+    state difference of the check"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    pitch_module = port.preprocess.pitch
+    pitch_model = port.load.pitch_model(config=config, device=device)
+    ppg_model = port.load.ppg_model(config=config, device=device)
+    encoder = port.load.speaker_encoder(config=config, device=device)
+    reset_launch_counts(resblock, viterbi)
+    with torch.no_grad():
+        loudness, pitch, periodicity, ppg, embedding = \
+            port.preprocess.from_audio(
+                audio, pitch_model, ppg_model,
+                features=('loudness', 'pitch', 'periodicity', 'ppg',
+                          'speaker'),
+                config=config, device=device, speaker_model=encoder)
+        torch.cuda.synchronize()
+    launches = launch_counts(resblock, viterbi)
+    # The same posteriorgram, decoded by K2 and by the plain scan
+    frames = audio.shape[-1] // config.HOPSIZE
+    samples = port.data.bucket_frames(
+        frames, config.INFERENCE_FRAME_BUCKETS) * config.HOPSIZE
+    with torch.no_grad():
+        scores = pitch_module.cnn_posteriorgram(
+            pitch_model, port.preprocess.core.pad(audio, samples, device),
+            config.HOPSIZE)
+        refined, _ = pitch_module.decode(
+            scores, config.FMIN, config.FMAX, 'viterbi', 'cnn')
+    transition = viterbi.triangular_transition(
+        scores.shape[-1], pitch_module.TRANSITION_WIDTH).to(device)
+    _, initial = pitch_module.decode_constants(
+        scores.shape[-1], pitch_module.TRANSITION_WIDTH, str(device))
+    largest = check_decodes(
+        viterbi, device,
+        [('trained_posteriorgram', torch.log_softmax(scores, -1),
+          transition)], initial, phase='trained_extractors')
+    # The signal's pitch is known: a vibrato around 180 Hz
+    truth = harmonic_track(
+        audio.shape[-1] / config.SAMPLE_RATE, config.SAMPLE_RATE,
+        config.HOPSIZE)[:frames]
+    cents = 1200 * np.abs(np.log2(pitch[0].cpu().numpy() / truth))
+    record = dict(
+        phase='trained_extractors', frames=frames, launches=launches,
+        voicing_threshold=pitch_model.voicing_threshold,
+        pitch_equal_to_kernel_decode=bool(torch.equal(
+            pitch[0], refined[:frames])),
+        median_cents_against_the_signal=float(np.median(cents)),
+        finite=bool(all(torch.isfinite(value).all() for value in (
+            loudness, pitch, periodicity, ppg, embedding))),
+        shapes=[list(value.shape) for value in (
+            loudness, pitch, periodicity, ppg, embedding)],
+        embedding_norm=float(torch.linalg.vector_norm(embedding)))
+    emit(**record)
+    if launches != {'resblock': 0, 'viterbi': 1, 'viterbi_logfreq': 0} or \
+            not record['pitch_equal_to_kernel_decode'] or \
+            not record['finite'] or \
+            abs(record['embedding_norm'] - 1.) > 1e-5:
+        raise AssertionError('the trained extractors are wrong on the card')
+    return launches['viterbi'], largest
+
+
+def from_probabilities_path(torch, port, device, config, audio, encoder):
+    """Phase 22: `ops.viterbi.from_probabilities` on (BATCHED_BUCKET, 256)
+    probabilities under its default uniform transition, where every
+    predecessor ties, and under the pitch decode's: one K2 launch each,
+    paths equal to the plain scan's on the card and on the CPU. Then the
+    short inputs of the reflect padding's repair (SHORT_SAMPLES) through
+    the spectrogram, the loudness and the speaker encoder on the card:
+    finite, of the JAX package's shapes (frames = (T + 2 * 384 - NUM_FFT)
+    // HOPSIZE + 1, none below 256 samples, where both packages' loudness
+    raises on the maximum of no frame). Returns the K2 launches and the
+    largest state difference"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    rng = np.random.default_rng(22)
+    probabilities = torch.softmax(torch.from_numpy(
+        3 * rng.standard_normal((BATCHED_BUCKET, 256))).float(), -1)
+    states = probabilities.shape[-1]
+    launches, largest = 0, 0
+    for label, matrix in (
+        ('uniform', None),
+        ('pitch', torch.exp(viterbi.triangular_transition(states, 9.))),
+    ):
+        reset_launch_counts(resblock, viterbi)
+        kernel = viterbi.from_probabilities(
+            probabilities.to(device),
+            None if matrix is None else matrix.to(device))
+        torch.cuda.synchronize()
+        counts = launch_counts(resblock, viterbi)
+        plain = viterbi.from_probabilities(probabilities, matrix).numpy()
+        dense = torch.full((states, states), 1. / states) \
+            if matrix is None else matrix
+        on_card_plain = viterbi.backtrace_plain(*viterbi.forward_plain(*(
+            torch.log(torch.clamp(value.to(device), min=1e-12))
+            for value in (probabilities, dense,
+                          torch.full((states,), 1. / states))))
+        ).cpu().numpy()
+        kernel = kernel.cpu().numpy()
+        record = dict(
+            phase='from_probabilities', transition=label,
+            frames=BATCHED_BUCKET, states=states, launches=counts,
+            equal=bool(np.array_equal(kernel, plain) and
+                       np.array_equal(kernel, on_card_plain)),
+            mismatches=int((kernel != plain).sum()))
+        emit(**record)
+        launches += counts['viterbi']
+        largest = max(largest, int(np.abs(kernel - plain).max()),
+                      int(np.abs(kernel - on_card_plain).max()))
+        if counts != {'resblock': 0, 'viterbi': 1, 'viterbi_logfreq': 0} or \
+                not record['equal']:
+            raise AssertionError('from_probabilities is wrong on the card')
+
+    shapes = {}
+    for samples in SHORT_SAMPLES:
+        short = torch.from_numpy(audio[:, :samples]).to(device)
+        padding = (config.NUM_FFT - config.HOPSIZE) // 2
+        frames = max(0, (samples + 2 * padding - config.NUM_FFT) //
+                     config.HOPSIZE + 1)
+        with torch.no_grad():
+            outputs = {
+                'spectrogram': port.preprocess.spectrogram.from_audio(
+                    short, config),
+                'mels': port.preprocess.spectrogram.from_audio(
+                    short, config, mels=True),
+                'speaker': port.preprocess.speaker.encoder_embedding(
+                    short, encoder, config, device)}
+            if frames:
+                outputs['loudness'] = port.preprocess.loudness.from_audio(
+                    short, config)
+        expected = {
+            'spectrogram': [config.NUM_FFT // 2 + 1, frames],
+            'mels': [config.NUM_MELS, frames],
+            'speaker': [config.WAVLM_EMBEDDING_CHANNELS]}
+        if frames:
+            expected['loudness'] = [config.NUM_FFT // 2 + 1, frames]
+        shapes[samples] = {
+            name: list(value.shape) for name, value in outputs.items()}
+        finite = all(bool(torch.isfinite(value).all())
+                     for value in outputs.values())
+        if shapes[samples] != expected or not finite or \
+                any(value.device.type != 'cuda'
+                    for value in outputs.values()):
+            emit(phase='short_inputs', samples=samples, shapes=shapes,
+                 expected=expected, finite=finite)
+            raise AssertionError(f'{samples} samples fail on the card')
+    emit(phase='short_inputs', shapes=shapes, finite=True)
+    return launches, largest
 
 
 def main():
@@ -2775,10 +3119,12 @@ def main():
     k1_error = max(k1_error, k1_evaluation_error)
     k2_error = max(k2_error, k2_evaluation_error)
 
-    # 15. The training path
+    # 15. The training path, whose corpus phases 19 to 21 read again
+    (ROOT / 'build').mkdir(exist_ok=True)
+    corpus_directory = tempfile.TemporaryDirectory(dir=ROOT / 'build')
     path_launches['training'], k1_training_error, k2_training_error = \
         training_path(torch, port, device, config, pitch_model, ppg_model,
-                      edited_main)
+                      edited_main, corpus_directory.name)
     k1_error = max(k1_error, k1_training_error)
     k2_error = max(k2_error, k2_training_error)
 
@@ -2795,7 +3141,22 @@ def main():
         name: path_launches[name]
         for name in ('fargan_training', 'export', 'cargan')})
 
-    # 19. Kernel times at the main path's shapes
+    # 19 to 22. The feature extractors trained on the card, read back and
+    # run; from_probabilities and the short inputs
+    extractor_config = extractor_training_path(
+        torch, port, device, config, corpus_directory.name)
+    extractor_card_vs_cpu(torch, port, device, extractor_config)
+    k2_call_sites = {'main_path': launches['viterbi']}
+    k2_call_sites['trained_extractors'], k2_extractor_error = \
+        trained_extractors_path(torch, port, device, extractor_config, audio)
+    k2_call_sites['from_probabilities'], k2_probabilities_error = \
+        from_probabilities_path(
+            torch, port, device, config, audio,
+            port.load.speaker_encoder(config=extractor_config, device=device))
+    k2_error = max(k2_error, k2_extractor_error, k2_probabilities_error)
+    corpus_directory.cleanup()
+
+    # 23. Kernel times at the main path's shapes
     k1 = dict(ms=0., plain_ms=0., library_ms=0., bound_ms=0.)
     bound_by_kind = {'operations': 0., 'bytes': 0.}
     for frames, channels in shapes:
@@ -2968,7 +3329,9 @@ def main():
         dict(name='viterbi', route='cuda',
              source='promonet_tpu_torch/csrc/viterbi.cu',
              replaces='promonet_tpu/ops/viterbi.py:405',
-             launches=launches['viterbi'], max_abs_err=float(k2_error),
+             launches=launches['viterbi'],
+             launches_by_call_site=k2_call_sites,
+             max_abs_err=float(k2_error),
              ms=k2_ms, plain_ms=k2_plain_ms,
              bound_ms=max(k2_ops / PEAK_FP32, k2_bytes / PEAK_BYTES) * 1e3,
              bound_by='operations' if k2_ops / PEAK_FP32 >

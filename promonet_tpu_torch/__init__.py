@@ -31,9 +31,11 @@ GPU unless called with device='cpu'.
 
 The port imports neither JAX nor the JAX package. Configuration is an
 explicit `config.Config` (see `config.load`); weights come from the
-port's checkpoint files (`utils.checkpoint`, read by `load`), converted
-from the JAX package's by `scripts/convert_checkpoints.py` through
-`models.bridge`, or from a seed through `models.init.seeded`.
+port's checkpoint files (`utils.checkpoint`, read by `load`): trained by
+the port (`train`, and `preprocess.{pitch,ppg,speaker}.train` for the
+feature extractors), converted from the JAX package's by
+`scripts/convert_checkpoints.py` through `models.bridge`, or from a seed
+through `models.init.seeded`.
 """
 from . import config
 from . import convert

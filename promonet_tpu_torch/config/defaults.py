@@ -150,7 +150,8 @@ ZERO_SHOT_SHUFFLE = False
 ASSETS_DIR = Path(__file__).parent.parent.parent / 'promonet_tpu' / 'assets'
 
 # The port's checkpoints of the pitch CNN, the PPG encoder and the speaker
-# encoder (`<name>-<step:08d>.pt`, written by scripts/convert_checkpoints.py)
+# encoder (`<name>-<step:08d>.pt`, written by `preprocess.{pitch,ppg,
+# speaker}.train` or converted by scripts/convert_checkpoints.py)
 CHECKPOINTS_DIR = Path(__file__).parent.parent.parent / 'checkpoints_torch'
 
 # The port's training runs: checkpoints and metrics.jsonl under

@@ -153,6 +153,47 @@ def pitch_distribution(config=None):
             config.PITCH_BINS)).astype(np.float32)
 
 
+def per_speaker_averages(dataset=None, partition='train', config=None):
+    """Average voiced pitch of each speaker of a partition: {speaker: Hz}
+
+    The geometric mean of the pitch of every frame whose periodicity is
+    above config.VOICING_THRESHOLD, over the partition's stems (a train
+    partition's augmented copies too). Read from config.CACHE_DIR.parent /
+    'stats' / '<dataset>-<partition>-speaker-averages{-viterbi}.json',
+    where an earlier call wrote it; the JAX package's file in its assets
+    is neither read nor written.
+    """
+    from .data import Dataset
+
+    config = config_module.default() if config is None else config
+    if dataset is None:
+        dataset = config.TRAINING_DATASET
+    viterbi = '-viterbi' if config.VITERBI_DECODE_PITCH else ''
+    file = (
+        config.CACHE_DIR.parent / 'stats' /
+        f'{dataset}-{partition}-speaker-averages{viterbi}.json')
+    if file.exists():
+        with open(file) as handle:
+            return json.load(handle)
+
+    dataset_object = Dataset(dataset, partition, config)
+    pitches = {}
+    for stem in dataset_object.stems:
+        pitch = array(dataset_object.cache / f'{stem}{viterbi}-pitch.npy')
+        periodicity = array(
+            dataset_object.cache / f'{stem}{viterbi}-periodicity.npy')
+        voiced = np.logical_and(
+            ~np.isnan(pitch), periodicity > config.VOICING_THRESHOLD)
+        pitches.setdefault(stem.split('/')[0], []).append(pitch[voiced])
+    averages = {
+        speaker: float(2 ** np.log2(np.concatenate(values)).mean())
+        for speaker, values in pitches.items()}
+    file.parent.mkdir(parents=True, exist_ok=True)
+    with open(file, 'w') as handle:
+        json.dump(averages, handle, indent=4, sort_keys=True)
+    return averages
+
+
 ###############################################################################
 # Models (each loader imports its model's module when called: the models
 # import this module)

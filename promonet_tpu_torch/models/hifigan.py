@@ -20,6 +20,32 @@ from ..ops.resblock import Packed, fused_block, pack_weights
 from .modules import Conv1d, ConvTranspose1d, leaky_relu
 
 
+def receptive_field_frames(
+        upsample_kernel_sizes=(16, 16, 4, 4),
+        upsample_rates=(8, 8, 2, 2),
+        resblock_kernel_sizes=(3, 7, 11),
+        resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5))):
+    """Conditioning receptive field of the HiFi-GAN stack, in input frames
+
+    Accumulated back from one output sample: each stride-1 convolution
+    widens the window by (k - 1) * dilation, each transposed upsampling
+    divides it by its rate (plus its kernel's spill), and the parallel
+    residual branches take the widest kernel. The full extent, both
+    sides: it bounds how many trailing frames of output a change to the
+    last input frame can reach.
+    """
+    field = 1 + 6  # output conv, kernel 7
+    for kernel, rate in zip(
+        reversed(upsample_kernel_sizes), reversed(upsample_rates)
+    ):
+        field += max(
+            sum((k - 1) * d + (k - 1) for d in dilations)
+            for k, dilations in zip(
+                resblock_kernel_sizes, resblock_dilation_sizes))
+        field = -(-(field + kernel - 1) // rate) + 1
+    return field + 6  # input conv, kernel 7
+
+
 def train_block(x, weight, bias, dilations, slope, dtype):
     """A Block's chain, differentiable: `F.conv1d` in `dtype`
 

@@ -1,5 +1,8 @@
 """1-D grid resampling (counterpart of `promonet_tpu/ops/grid.py`)"""
+import numpy as np
 import torch
+
+from .. import device as device_module
 
 
 def sample(sequence, grid, method='linear'):
@@ -62,3 +65,40 @@ def masked_interp(values, mask):
         torch.zeros((), device=values.device))
     interpolated = left_value * (1 - weight) + right_value * weight
     return torch.where(mask, values, interpolated)
+
+
+def from_alignments(source, target, sample_rate, hopsize, device='cuda'):
+    """Grid mapping the frames of a target alignment back onto a source
+
+    Arguments
+        source, target: (phonemes, 2) (start, end) seconds of the same
+            phonemes in the two alignments
+        device: where the grid goes; 'cuda' raises on a host without a
+            card
+
+    Returns
+        (round(target end * frame rate),) float32 tensor on `device`: for
+        each output frame (centred at (i + 0.5) / frame rate), the source
+        frame at the same fraction of the same phoneme, floored at 0.
+        Computed in float64 numpy, as the JAX package does.
+    """
+    device = device_module.resolve(device)
+    source = np.asarray(source, dtype=np.float64)
+    target = np.asarray(target, dtype=np.float64)
+    if source.shape != target.shape:
+        raise ValueError(
+            'Source and target alignments must have the same number of '
+            'phonemes')
+    frames_per_second = sample_rate / hopsize
+    total_frames = int(round(target[-1, 1] * frames_per_second))
+    times = (np.arange(total_frames) + 0.5) / frames_per_second
+    index = np.clip(
+        np.searchsorted(target[:, 1], times, side='left'), 0,
+        len(target) - 1)
+    t0, t1 = target[index, 0], target[index, 1]
+    s0, s1 = source[index, 0], source[index, 1]
+    alpha = np.where(
+        t1 > t0, (times - t0) / np.maximum(t1 - t0, 1e-9), 0.)
+    grid = (s0 + alpha * (s1 - s0)) * frames_per_second - 0.5
+    return torch.from_numpy(
+        np.clip(grid, 0., None).astype(np.float32)).to(device)

@@ -14,16 +14,30 @@ def hann_window(size, dtype=torch.float32, device=None):
 
 
 def frame(audio, frame_length, hop_length):
-    """Overlapping frames (..., N, frame_length), no centering or padding"""
+    """Overlapping frames (..., N, frame_length), no centering or padding;
+    none (N = 0) where the audio is shorter than a frame"""
+    if audio.shape[-1] < frame_length:
+        return audio.new_zeros((*audio.shape[:-1], 0, frame_length))
     return audio.unfold(-1, frame_length, hop_length)
 
 
 def reflect_pad(audio, padding):
-    """Reflect-pad the last axis of (..., T) on both sides"""
-    shape = audio.shape
-    padded = F.pad(audio.reshape(-1, 1, shape[-1]), (padding, padding),
-                   mode='reflect')
-    return padded.reshape(*shape[:-1], padded.shape[-1])
+    """Reflect-pad the last axis of (..., T) on both sides, as `np.pad`
+    and `jnp.pad` with mode='reflect' do
+
+    Sample i of the padded axis reads index i - padding folded into
+    [0, T - 1] with period 2 (T - 1), so a padding of T or more reflects
+    again and again; a single sample repeats.
+    """
+    length = audio.shape[-1]
+    index = torch.arange(-padding, length + padding, device=audio.device)
+    if length == 1:
+        index = torch.zeros_like(index)
+    else:
+        period = 2 * (length - 1)
+        index = torch.remainder(index, period)
+        index = torch.where(index < length, index, period - index)
+    return audio[..., index]
 
 
 def stft(
@@ -36,6 +50,11 @@ def stft(
 ):
     """STFT of (..., T) with center=False, as (..., n_freq, n_frames)"""
     frames = frame(audio, n_fft, hop_length)
+    if frames.shape[-2] == 0:
+        # No frame fits; the FFT of none is refused on the CPU
+        return torch.zeros(
+            (*frames.shape[:-2], n_fft // 2 + 1, 0), device=audio.device,
+            dtype=audio.dtype if magnitude else torch.complex64)
     if window is not None:
         frames = frames * window
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)

@@ -210,6 +210,28 @@ def decode(observation, transition, initial):
 decode.launches = 0
 
 
+def from_probabilities(observation, transition=None, initial=None):
+    """`decode` of probabilities instead of their logs (torbi's entry point)
+
+    Each input is clipped to 1e-12 before the log. transition None is
+    uniform (N, N) and initial None uniform (N,), in the observation's
+    dtype on its device; a CUDA observation reaches the kernel, the
+    uniform transition as a dense matrix.
+    """
+    num_states = observation.shape[-1]
+    like = dict(dtype=observation.dtype, device=observation.device)
+    if transition is None:
+        transition = torch.full((num_states, num_states), 1. / num_states,
+                                **like)
+    if initial is None:
+        initial = torch.full((num_states,), 1. / num_states, **like)
+
+    def log(probabilities):
+        return torch.log(torch.clamp(probabilities, min=1e-12))
+
+    return decode(log(observation), log(transition), log(initial))
+
+
 def forward_plain(observation, transition, initial):
     """Forward pass; returns ((T, N) argmax predecessors, final alpha)
 

@@ -2,6 +2,10 @@
 import numpy as np
 import torch
 
+from .. import config as config_module
+from .. import device as device_module
+from .. import load
+from ..convert import db_to_ratio
 from ..ops import grid as grid_ops, spectral, stft as stft_ops
 
 
@@ -29,6 +33,37 @@ def from_audio(audio, config, bands=None):
     weighted = spectral.amplitude_to_db(magnitude) + weights
     weighted = torch.clamp(weighted, min=config.MIN_DB)
     return weighted if bands is None else band_average(weighted, bands)
+
+
+def from_file(audio_file, bands=None, config=None, device='cuda'):
+    """A-weighted loudness of a wav file; bands None takes
+    config.LOUDNESS_BANDS"""
+    config = config_module.default() if config is None else config
+    if bands is None:
+        bands = config.LOUDNESS_BANDS
+    audio = torch.from_numpy(load.audio(audio_file, config)).to(
+        device_module.resolve(device))
+    return from_audio(audio, config, bands)
+
+
+def from_file_to_file(audio_file, output_file, bands=None, config=None,
+                      device='cuda'):
+    """A-weighted loudness of a wav file, saved to `output_file`"""
+    load.save_array(
+        output_file, from_file(audio_file, bands, config, device))
+
+
+def from_files_to_files(audio_files, output_files, bands=None, config=None,
+                        device='cuda'):
+    """A-weighted loudness of several wav files, in turn"""
+    for audio_file, output_file in zip(audio_files, output_files):
+        from_file_to_file(audio_file, output_file, bands, config, device)
+
+
+def normalize(loudness, config=None):
+    """Loudness in dB mapped from [MIN_DB, REF_DB] to [0, 1]"""
+    config = config_module.default() if config is None else config
+    return (loudness - config.MIN_DB) / (config.REF_DB - config.MIN_DB)
 
 
 def band_average(loudness, bands):
@@ -61,14 +96,19 @@ def scale(audio, target_loudness, config):
     if target_loudness.dim() >= 2 and target_loudness.shape[-2] > 1:
         target_loudness = target_loudness.mean(dim=-2, keepdim=True)
     loudness = from_audio(audio, config, bands=1)
-    gain = 2 ** ((target_loudness - loudness) / 10)
+    gain = db_to_ratio(target_loudness - loudness)
     return limit(shift(audio, gain))
 
 
 def shift(audio, value):
     """Shift the loudness of audio (1, T) by value dB: a scalar, or one
-    per frame, interpolated to the samples (align_corners=False)"""
-    gain = 2 ** (torch.as_tensor(value, device=audio.device) / 10)
+    per frame, interpolated to the samples (align_corners=False)
+
+    The gain is computed in the audio's dtype: a float64 `value` leaves
+    float32 audio float32, as in the JAX package.
+    """
+    gain = db_to_ratio(torch.as_tensor(
+        value, dtype=audio.dtype, device=audio.device))
     if gain.numel() > 1:
         samples, frames = audio.shape[-1], gain.shape[-1]
         positions = (torch.arange(

@@ -11,8 +11,11 @@ resolves as the JAX package does, without its first step:
    no weights.
 
 Every embedding is a unit-norm float32 (WAVLM_EMBEDDING_CHANNELS,)
-tensor on the device the audio was analysed on.
+tensor on the device the audio was analysed on. `train` trains the
+encoder as a speaker classifier on the formant corpus.
 """
+import re
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -21,9 +24,12 @@ from torch import nn
 from .. import config as config_module
 from .. import device as device_module
 from .. import load
+from ..models import init
 from ..models.modules import Conv1d
 from ..utils import audio as audio_module
+from ..utils import checkpoint
 from . import spectrogram as spectrogram_module
+from . import training
 
 # (kernel size, dilation) of the encoder's four frame-level layers
 LAYERS = ((5, 1), (3, 2), (3, 3), (1, 1))
@@ -53,13 +59,17 @@ class SpeakerEncoder(nn.Module):
 
     def forward(self, mels, frames):
         """mels (B, T, NUM_MELS) and valid frame counts (B,) → (B, E)"""
-        x = mels.float()
+        x = mels.to(self.output.weight.dtype)
         for conv, norm in zip(self.convs, self.norms):
-            x = F.relu(norm(conv(x)))
+            if x.shape[-2] == 0:
+                # 'SAME' padding of no frames gives no frames
+                x = x.new_zeros((*x.shape[:-1], conv.weight.shape[0]))
+            else:
+                x = F.relu(norm(conv(x, x.dtype)))
         mask = (
             torch.arange(x.shape[-2], device=x.device)[None, :, None] <
             frames[:, None, None])
-        denominator = torch.clamp(frames[:, None].float(), min=1.)
+        denominator = torch.clamp(frames[:, None].to(x.dtype), min=1.)
         mean = torch.sum(x * mask, dim=-2) / denominator
         variance = torch.sum(
             (x - mean[:, None]) ** 2 * mask, dim=-2) / denominator
@@ -157,6 +167,149 @@ def from_files_to_files(audio_files, output_files, encoder=None, config=None,
     """Speaker embeddings of several wav files, in turn"""
     for audio_file, output_file in zip(audio_files, output_files):
         from_file_to_file(audio_file, output_file, encoder, config, device)
+
+
+###############################################################################
+# Training
+###############################################################################
+
+
+def training_examples(dataset, window, config, device):
+    """The window bank of `train`
+
+    Each original utterance (stem `<digits>-100`; augmented copies are
+    left out) under config.CACHE_DIR / dataset, in sorted order: its
+    log-mels (computed on `device`), zero-padded to whole windows and cut
+    into windows; a window with fewer than window // 4 valid frames is
+    left out. Speakers are the sorted directory names.
+
+    Returns mels (N, window, NUM_MELS) float32, speaker labels (N,) int32,
+    valid frames (N,) int32 as numpy, and the speakers.
+    """
+    cache = config.CACHE_DIR / dataset
+    wavs = sorted(cache.glob('*/*.wav'))
+    speakers = sorted({wav.parent.name for wav in wavs})
+    if len(speakers) < 2:
+        raise FileNotFoundError(
+            f'Need at least 2 speakers under {cache}; generate the corpus '
+            'with promonet_tpu_torch.data.synthetic.create(...)')
+    speaker_index = {speaker: i for i, speaker in enumerate(speakers)}
+    examples, labels, lengths = [], [], []
+    for wav in wavs:
+        if not re.fullmatch(r'\d+-100', wav.stem):
+            continue
+        audio = load.audio(wav, config)
+        frames = audio.shape[-1] // config.HOPSIZE
+        mels = training.window_mels(audio, frames, window, config, device)
+        for start in range(0, len(mels), window):
+            valid = min(window, frames - start)
+            if valid < window // 4:
+                continue
+            examples.append(mels[start:start + window])
+            labels.append(speaker_index[wav.parent.name])
+            lengths.append(valid)
+    return (np.stack(examples).astype(np.float32),
+            np.asarray(labels, np.int32), np.asarray(lengths, np.int32),
+            speakers)
+
+
+class Classifier(nn.Module):
+    """What `train` trains: the encoder and a dense speaker head over its
+    embedding, (B, T, NUM_MELS) mels and (B,) valid frames → (B,
+    speakers) logits; only the encoder is kept"""
+
+    def __init__(self, num_speakers, num_mels=80, embedding_channels=512):
+        super().__init__()
+        self.encoder = SpeakerEncoder(
+            num_mels, embedding_channels=embedding_channels)
+        self.head = nn.Linear(embedding_channels, num_speakers)
+
+    def forward(self, mels, frames):
+        return self.head(self.encoder(mels, frames))
+
+
+def training_loss(model, mels, labels, frames):
+    """Cross-entropy of each window's speaker"""
+    return F.cross_entropy(model(mels, frames), labels)
+
+
+def accuracy(model, mels, labels, frames):
+    """Share of the windows whose argmax is their speaker"""
+    with torch.no_grad():
+        predicted = torch.argmax(model(mels, frames), dim=-1)
+        return float((predicted == labels).float().mean())
+
+
+def train(
+    dataset='synthetic',
+    steps=4000,
+    batch_size=32,
+    window=256,
+    learning_rate=3e-4,
+    output=None,
+    config=None,
+    device='cuda',
+    callback=None
+):
+    """Train the speaker encoder as a speaker classifier
+
+    A `Classifier` seeded from RANDOM_SEED (`models.init`) under one Adam
+    (b1 0.9, b2 0.999, eps 1e-8; no schedule, no decay) on
+    `training_loss`. The window bank (`training_examples`) is held on
+    `device` and each batch gathered there; the held-out split (one
+    window in twenty) and the batch indices come from
+    `numpy.random.default_rng(RANDOM_SEED)`, as in the JAX package. The
+    head is dropped after training.
+
+    Arguments
+        output: the checkpoint's directory (None: config.CHECKPOINTS_DIR)
+        device: where to train; 'cuda' raises on a host without a card
+        callback: called as callback(step, loss) after each step, the
+            loss a tensor on `device`
+
+    Returns the held-out window accuracy; writes `speaker-<steps>.pt`
+    (the encoder) with 'accuracy', which `load.speaker_encoder` reads.
+    """
+    device = device_module.resolve(device)
+    config = config_module.default() if config is None else config
+    examples, labels, lengths, speakers = training_examples(
+        dataset, window, config, device)
+
+    rng = np.random.default_rng(config.RANDOM_SEED)
+    order = rng.permutation(len(examples))
+    num_valid = max(1, len(order) // 20)
+    valid_index, train_index = order[:num_valid], order[num_valid:]
+
+    model = init.seeded(
+        Classifier(len(speakers), config.NUM_MELS,
+                   config.WAVLM_EMBEDDING_CHANNELS),
+        config.RANDOM_SEED).to(device).train()
+    optimizer = torch.optim.Adam(
+        model.parameters(), lr=learning_rate, betas=(.9, .999), eps=1e-8)
+    bank = (
+        torch.from_numpy(examples).to(device),
+        torch.from_numpy(labels.astype(np.int64)).to(device),
+        torch.from_numpy(lengths.astype(np.int64)).to(device))
+    valid = [tensor[torch.from_numpy(valid_index).to(device)]
+             for tensor in bank]
+
+    batches = training.batches(rng, train_index, batch_size, steps, device)
+    for step, batch in enumerate(batches):
+        loss = training.update(
+            training_loss(model, *(tensor[batch] for tensor in bank)),
+            optimizer)
+        if callback is not None:
+            callback(step, loss)
+        if step % 500 == 0:
+            print(f'speaker train step {step}: loss {float(loss):.3f}, '
+                  f'valid acc {accuracy(model, *valid):.3f}', flush=True)
+
+    model.eval()
+    result = accuracy(model, *valid)
+    checkpoint.save(
+        training.checkpoint_file('speaker', steps, output, config),
+        model.encoder.state_dict(), step=steps, accuracy=result)
+    return result
 
 
 def _mels(audio, config, device):

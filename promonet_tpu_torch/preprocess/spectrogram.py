@@ -1,4 +1,9 @@
 """Linear spectrograms and log-mels (counterpart of `preprocess/spectrogram.py`)"""
+import torch
+
+from .. import config as config_module
+from .. import device as device_module
+from .. import load
 from ..ops import mel as mel_ops, stft as stft_ops
 
 
@@ -24,6 +29,27 @@ def from_audio(
         return linear_to_mel(
             spectrogram, config, log_dynamic_range_compression_threshold)
     return spectrogram
+
+
+def from_file(audio_file, mels=False, config=None, device='cuda'):
+    """(Mel) spectrogram of a wav file, (n_freq or NUM_MELS, frames)"""
+    config = config_module.default() if config is None else config
+    audio = torch.from_numpy(load.audio(audio_file, config)).to(
+        device_module.resolve(device))
+    return from_audio(audio, config, mels)
+
+
+def from_file_to_file(audio_file, output_file, mels=False, config=None,
+                      device='cuda'):
+    """(Mel) spectrogram of a wav file, saved to `output_file`"""
+    load.save_array(output_file, from_file(audio_file, mels, config, device))
+
+
+def from_files_to_files(audio_files, output_files, mels=False, config=None,
+                        device='cuda'):
+    """(Mel) spectrograms of several wav files, in turn"""
+    for audio_file, output_file in zip(audio_files, output_files):
+        from_file_to_file(audio_file, output_file, mels, config, device)
 
 
 def linear_to_mel(

@@ -31,6 +31,7 @@ from promonet_tpu.train import core as jax_core
 
 import promonet_tpu_torch as port
 from promonet_tpu_torch.models import bridge
+from test_torch_train import drop_large_files
 
 ROOT = Path(__file__).resolve().parent.parent
 NARROW = dict(
@@ -58,6 +59,12 @@ def _keys(tree):
     if isinstance(tree, dict):
         return {key: _keys(value) for key, value in tree.items()}
     return None
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    yield
+    drop_large_files(tmp_path)
 
 
 @pytest.fixture(scope='module')
@@ -118,7 +125,8 @@ def adapted(tmp_path_factory):
     ours = port.evaluate.datasets(
         ['synthetic'], checkpoint=port_base, adapt=True, max_stems=1,
         config=config, device='cpu')
-    return root, config, (ours_partition, theirs_partition), ours, theirs
+    yield root, config, (ours_partition, theirs_partition), ours, theirs
+    drop_large_files(root)
 
 
 def test_adaptation_partitions_match_jax(adapted):

@@ -1,8 +1,10 @@
 """The port's CUDA kernels held against their plain PyTorch versions, and
 on the paths that call them: zero-shot batches (K1 at B = 8 with x-vector
 speakers), the three CLIs as processes of their own, the registered
-residual-block operator inside an exported program, CARGAN, and FARGAN's
-training step (no K1; the card against the CPU with the same noise).
+residual-block operator inside an exported program, CARGAN, FARGAN's
+training step (no K1; the card against the CPU with the same noise),
+`ops.viterbi.from_probabilities` (K2) and one training step of each
+feature extractor (the card against the CPU).
 
 These need an NVIDIA GPU and `nvcc`; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it also runs where only
@@ -877,3 +879,82 @@ def test_fargan_step_on_the_card_matches_the_cpu(device):
                        if name.startswith('loss/')})
     for name, value in losses[0].items():
         assert abs(losses[1][name] - value) <= 1e-4 * abs(value), name
+
+
+@pytest.mark.parametrize('frames', [1, 120, 896])
+@pytest.mark.parametrize('transition', ['uniform', 'pitch'])
+def test_from_probabilities_reaches_the_viterbi_kernel(
+        device, frames, transition):
+    """The default uniform transition, where every predecessor ties, and
+    the pitch decode's: one launch, the plain path"""
+    rng = np.random.default_rng(frames)
+    probabilities = torch.softmax(torch.from_numpy(
+        3 * rng.standard_normal((frames, 256))).float(), -1)
+    matrix = None if transition == 'uniform' else torch.exp(
+        viterbi.triangular_transition(256, 9.))
+    plain = viterbi.from_probabilities(probabilities, matrix)
+    launches = viterbi.decode.launches
+    kernel = viterbi.from_probabilities(
+        probabilities.to(device),
+        None if matrix is None else matrix.to(device))
+    assert viterbi.decode.launches == launches + 1
+    np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+def _extractor_problem(name, rng):
+    """A seeded extractor on the CPU, its loss, its optimizer and a
+    numpy-seeded float32 batch at the JAX package's batch size"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.preprocess import pitch, ppg, speaker, training
+    seeded = port.models.init.seeded
+    if name == 'pitch':
+        model, rate = seeded(pitch.PitchCNN(), 0), 2e-4
+        batch = (rng.standard_normal((128, 1024)).astype(np.float32),
+                 rng.integers(0, 256, 128))
+    elif name == 'ppg':
+        model, rate = seeded(ppg.PPGEncoder(), 0), 1e-3
+        batch = (rng.standard_normal((32, 256, 80)).astype(np.float32),
+                 rng.integers(0, 40, (32, 256)),
+                 (rng.random((32, 256)) < .8).astype(np.float32))
+    else:
+        model, rate = seeded(speaker.Classifier(16), 0), 3e-4
+        batch = (rng.standard_normal((32, 256, 80)).astype(np.float32),
+                 rng.integers(0, 16, 32), rng.integers(64, 257, 32))
+    if name == 'speaker':
+        def optimizer(model):
+            return torch.optim.Adam(model.parameters(), lr=rate), None
+    else:
+        def optimizer(model):
+            return training.adamw_cosine(model.parameters(), rate, 100)
+    loss = getattr(port.preprocess, name).training_loss
+    return model, loss, optimizer, batch, rate
+
+
+@pytest.mark.parametrize('name', ['pitch', 'ppg', 'speaker'])
+def test_extractor_step_on_the_card_matches_the_cpu(device, name):
+    """One float32 step from the same weights on the same batch: the loss
+    within 1e-4 relative; every weight within 2 lr + 1e-4 of its leaf's
+    largest magnitude (an element whose gradient is within rounding of
+    zero may step the other way under Adam), and 99% within 1e-4 of it"""
+    import copy
+    from promonet_tpu_torch.preprocess import training
+    model, loss, optimizer, batch, rate = _extractor_problem(
+        name, np.random.default_rng(3))
+    losses, weights = [], []
+    for where in ('cpu', device):
+        stepped = copy.deepcopy(model).to(where)
+        launches = viterbi.decode.launches
+        losses.append(float(training.update(
+            loss(stepped, *(torch.from_numpy(value).to(where)
+                            for value in batch)), *optimizer(stepped))))
+        assert viterbi.decode.launches == launches
+        weights.append({key: value.cpu()
+                        for key, value in stepped.state_dict().items()})
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    close = []
+    for key, value in weights[0].items():
+        scale = float(value.abs().max())
+        error = (weights[1][key] - value).abs()
+        assert float(error.max()) <= 2 * rate + 1e-4 * scale, key
+        close.append((error <= 1e-4 * scale).flatten())
+    assert float(torch.cat(close).float().mean()) >= .99

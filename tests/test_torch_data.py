@@ -26,6 +26,7 @@ from promonet_tpu.preprocess import ppg as jax_ppg
 
 import promonet_tpu_torch as port
 from promonet_tpu_torch.models import bridge
+from test_torch_train import drop_large_files
 
 ROOT = Path(__file__).resolve().parent.parent
 SHAPE = dict(speakers=3, utterances=4, seconds=0.6)
@@ -259,10 +260,11 @@ def _jax_runs():
 
 def test_port_never_writes_into_the_jax_package(tmp_path, monkeypatch):
     """The corpus, its partition and an evaluation at the defaults, then
-    augmentation, training and speaker adaptation, with only the
-    directories the port writes pointed at a temporary one; the generator
-    is narrowed to the width the parity tests use, and training to a
-    chunk of 2048 samples, which moves no file. Training runs on two
+    augmentation, training, speaker adaptation, a step of the pitch CNN's
+    and of the PPG encoder's training and the per-speaker averages, with
+    only the directories the port writes pointed at a temporary one; the
+    generator is narrowed to the width the parity tests use, and training
+    to a chunk of 2048 samples, which moves no file. Training runs on two
     threads and without TensorBoard, as in `test_torch_train_runs.py`"""
     import torch
     monkeypatch.setattr(
@@ -273,6 +275,7 @@ def test_port_never_writes_into_the_jax_package(tmp_path, monkeypatch):
         _run_everything_that_writes(tmp_path)
     finally:
         torch.set_num_threads(threads)
+        drop_large_files(tmp_path)
 
 
 def _run_everything_that_writes(tmp_path):
@@ -306,6 +309,12 @@ def _run_everything_that_writes(tmp_path):
         'voice', wavs + wavs[:2], checkpoint=run / 'generator-00000001.pt',
         config=config, device='cpu')
     assert (config.RUNS_DIR / 'voice' / 'generator-00000002.pt').exists()
+    port.preprocess.pitch.train(
+        steps=1, batch_size=2, max_frames=50, config=config, device='cpu')
+    port.preprocess.ppg.train(
+        steps=1, batch_size=2, window=32, config=config, device='cpu')
+    assert set(port.load.per_speaker_averages(
+        'synthetic', config=config)) == {'0000'}
 
     assert (
         shipped.read_bytes(), _jax_package_files(), _jax_runs(),
@@ -314,7 +323,8 @@ def _run_everything_that_writes(tmp_path):
     written = {path.relative_to(tmp_path).parts[0]
                for path in tmp_path.rglob('*') if path.is_file()}
     assert written == {
-        'cache', 'partitions', 'eval', 'results', 'augmentations', 'runs'}
+        'cache', 'partitions', 'eval', 'results', 'augmentations', 'runs',
+        'checkpoints', 'stats'}
     defaults = port.config.load()
     assert all(
         str(getattr(defaults, name)).startswith(str(ROOT / 'data'))

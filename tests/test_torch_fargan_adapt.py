@@ -23,6 +23,7 @@ import torch
 import promonet_tpu_torch as port
 
 from test_torch_train import _two_threads  # noqa: F401
+from test_torch_train import drop_large_files
 
 ROOT = Path(__file__).resolve().parent.parent
 NARROW = dict(
@@ -37,6 +38,12 @@ def _no_tensorboard():
         patch.setattr(
             port.utils.log, '_tensorboard_writer', lambda directory: None)
         yield
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    yield
+    drop_large_files(tmp_path)
 
 
 @pytest.fixture(scope='module')
@@ -60,7 +67,8 @@ def adapted(tmp_path_factory):
     results = port.evaluate.datasets(
         ['synthetic'], checkpoint=base, adapt=True, max_stems=1,
         config=config, device='cpu')
-    return root, config, base, results['synthetic']
+    yield root, config, base, results['synthetic']
+    drop_large_files(root)
 
 
 def test_fargan_adapts_and_evaluates(adapted):

@@ -37,6 +37,7 @@ The Vocos and spectrogram-only generators' steps are in
 `test_torch_train_baselines.py`, runs and checkpoints in
 `test_torch_train_runs.py`; both import the helpers here.
 """
+import os
 from pathlib import Path
 
 import jax
@@ -70,6 +71,19 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(previous)
+
+
+def drop_large_files(directory, size=2 ** 20):
+    """Delete the files over `size` bytes that a test wrote under
+    `directory`, never through a symbolic link: its checkpoints (a
+    discriminator's with its optimizer state is about half a gigabyte).
+    pytest keeps the temporary directories of its last three runs, and
+    without this the suite leaves about 6 GB in each"""
+    for parent, _, names in os.walk(directory):
+        for name in names:
+            path = os.path.join(parent, name)
+            if not os.path.islink(path) and os.path.getsize(path) > size:
+                os.remove(path)
 
 
 def _batch(seed, batch=2, frames=8):

@@ -21,7 +21,7 @@ import torch
 import promonet_tpu_torch as port
 from promonet_tpu_torch.train import core
 
-from test_torch_train import NARROW, _batch, _config
+from test_torch_train import NARROW, _batch, _config, drop_large_files
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -61,6 +61,12 @@ def test_log_writes_tensorboard_where_it_imports(tmp_path, monkeypatch):
                      ('audio', 'audio/x', (10, 1), 3, 22050), ('flush',)]
     record = json.loads((tmp_path / 'metrics.jsonl').read_text())
     assert record['step'] == 3 and record['loss'] == 1.5
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    yield
+    drop_large_files(tmp_path)
 
 
 @pytest.fixture(scope='module')
