@@ -162,7 +162,45 @@ Phases, each printed as one JSON line with the seconds since the start
    within 1e-4 relative), and one speaker's adaptation (12 utterances,
    2 held out, batch 16, ADAPTATION_STEPS 2 from the step-5 checkpoint)
    through evaluate.datasets(adapt=True), whose generator calls launch
-   12 residual-block calls each.
+   12 residual-block calls each. Phases 15 and 16 and the adaptation set
+   RESIDENT_DATA = False: their steps read the host loader, so that
+   their times stay comparable with the host-loader runs recorded before
+   resident data became the default on the card.
+15a. resident training, full width as phase 15, on its corpus, with
+   RESIDENT_DATA = None, which resolves to the device-resident corpus on
+   the card: the training partition packed on the host and copied to the
+   card once (its bytes on the card, pack and upload seconds); `crops` on
+   the card equal to `crops` on the CPU for the same rows and starts, and
+   4096 drawn starts within their stems; `train` for 4 steps
+   (STEPS_PER_DISPATCH auto: one dispatch of 4) with validation at step
+   0, resumed to step 6 with STEPS_PER_DISPATCH = 2; each step timed by
+   CUDA events (median without each call's first step) beside phase 15's
+   host-loader median, peak memory, the callbacks at steps 3 and 5 only,
+   the host loader asked for the validation partition alone, no
+   residual-block call in a step, the validation's 16 generator calls of
+   12 residual-block calls and 16 pitch decodes; one profiled dispatch
+   of two steps (idle share, device events per step); K1 held to its
+   bound at the validation's (batch, frames) and at batch 2 with the
+   zeroed-bias control.
+15b. pause and notify: a resident run of 8 steps in dispatches of 2 on a
+   thread; after its second dispatch this thread takes
+   `utils.pause.exclusive()`: the trainer acknowledges (request to
+   acknowledgement in seconds), has written generator-00000004.pt in its
+   `on_pause`, and takes no step across a 2 s hold (its step count and a
+   checksum of the generator's trainable weights unchanged); released,
+   the run finishes at step 8, leaves no protocol file, and
+   notifications.jsonl holds its 'train' start and completion; phase 14's
+   RUNS_DIR held the start and completion of each of its four
+   evaluate.datasets calls.
+15c. data parallel: a process group of one rank under NCCL (a FileStore
+   under build/), `train` at full width for 2 steps in one resident
+   dispatch (5 all-reduces: two gradient buckets a step and the metrics;
+   finite metrics), then from one seeded state and resident batch two
+   steps without the group (their spread is the card's run-to-run bound)
+   and one as rank 0 of the group, whose losses lie within that spread or
+   1e-3 relative. The group is destroyed before the later phases. Two
+   ranks are held equal to one process and to the JAX package's
+   2-device step by `tests/test_torch_parallel.py` on the CPU (gloo).
 16. FARGAN training path, full width (configs/fargan.py: batch 256 x
    4096 samples, bf16, the five period and the complex multi-band
    discriminators from step 0, spectral-convergence loss): a formant
@@ -217,6 +255,13 @@ Phases, each printed as one JSON line with the seconds since the start
    samples (the reflect padding's repair) through the spectrogram, the
    log-mels, the loudness (from 256 samples) and the trained speaker
    encoder on the card: finite, on the card, of the JAX package's shapes.
+22a. plot: the trained speaker encoder's embeddings (on the card) of
+   phase 15's 96 utterances, laid out by `plot.umap.UMAP` on the host:
+   its seconds and the ratio of the mean distance to the own speaker's
+   centroid to the mean distance between centroids; where matplotlib
+   imports, the prosody figure of one validation item and the speaker
+   figure saved under build/figures/ (a drawing error fails the phase),
+   else the line says "matplotlib not installed".
 23. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
    launches per Block, the time at each number of row tiles per thread
    block, the plain chain's and cuDNN's times and the bound; K2 with the
@@ -242,6 +287,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -299,6 +345,8 @@ EDIT = dict(
 # between one line and the next summed by the later line's phase
 START = time.perf_counter()
 PHASE_SECONDS = {}
+# Numbers one phase measures and a later one reports beside its own
+MEASURED = {}
 
 
 def emit(**record):
@@ -1578,7 +1626,24 @@ def evaluation_path(torch, port, device, config, pitch_model, ppg_model,
         emit(**record)
         if not record['same_conditions']:
             raise AssertionError('the evaluate CLI wrote other conditions')
+
+        # Each of the four evaluate.datasets calls (the evaluation, the
+        # mels and WORLD baselines, the CLI) reported its start and end
+        statuses = notifications(eval_config.RUNS_DIR)
+        MEASURED['evaluation_notifications'] = statuses
+        emit(phase='evaluation_notifications', records=statuses)
+        if statuses != [['evaluate', 'started'],
+                        ['evaluate', 'completed']] * 4:
+            raise AssertionError('the evaluation was not notified')
     return launches, k1_error, k2_error
+
+
+def notifications(runs_dir):
+    """[job, status] of each record of RUNS_DIR's notifications.jsonl"""
+    return [
+        [record['job'], record['status']] for record in map(
+            json.loads, (Path(runs_dir) / 'notifications.jsonl').read_text(
+            ).splitlines())]
 
 
 # The training corpus: 16 speakers x 6 utterances x 1 s, of which the
@@ -1613,6 +1678,19 @@ def train_batch(config, seed, batch=2, frames=8):
             (batch, 1, frames * config.HOPSIZE))).astype(np.float32)}
 
 
+def corpus_config(config, directory, **overrides):
+    """The configuration over phase 15's corpus and extractors under
+    `directory`, with `overrides`"""
+    directory = Path(directory)
+    return config.replace(**dict(dict(
+        CACHE_DIR=directory / 'cache',
+        PARTITIONS_DIR=directory / 'partitions',
+        AUGMENT_DIR=directory / 'augmentations',
+        RESULTS_DIR=directory / 'results', EVAL_DIR=directory / 'eval',
+        RUNS_DIR=directory / 'runs', CHECKPOINTS_DIR=directory / 'checkpoints',
+        NUM_WORKERS=8), **overrides))
+
+
 def training_path(torch, port, device, config, pitch_model, ppg_model,
                   edited, directory):
     """Phase 15: GAN training at full width on a formant corpus made on
@@ -1635,13 +1713,8 @@ def training_path(torch, port, device, config, pitch_model, ppg_model,
                     pitch_model.state_dict(), step=1)
     checkpoint.save(checkpoints / 'ppg-00000002.pt',
                     ppg_model.state_dict(), step=2)
-    train_config = config.replace(
-        CACHE_DIR=directory / 'cache',
-        PARTITIONS_DIR=directory / 'partitions',
-        AUGMENT_DIR=directory / 'augmentations',
-        RESULTS_DIR=directory / 'results', EVAL_DIR=directory / 'eval',
-        RUNS_DIR=directory / 'runs', CHECKPOINTS_DIR=checkpoints,
-        NUM_WORKERS=8)
+    # The host loader, which earlier recorded step times were taken with
+    train_config = corpus_config(config, directory, RESIDENT_DATA=False)
 
     # The corpus, augmented on the host and preprocessed on the card:
     # one K2 decode per wav, originals and copies
@@ -1678,52 +1751,13 @@ def training_path(torch, port, device, config, pitch_model, ppg_model,
 
     # Training, each step timed on the card, its launches counted; the
     # validation's launches and HiFi-GAN inputs counted apart
-    steps, validations, inputs_seen, captured = [], [], set(), []
-    last = {}
-    original_step = train_core.train_step
-    original_evaluate = train_core.evaluate
+    steps, validations, inputs_seen, partitions, captured = \
+        [], [], set(), [], []
     original_from_audio = port.preprocess.from_audio
 
-    def timed_step(*args, **kwargs):
-        start_event = torch.cuda.Event(enable_timing=True)
-        end_event = torch.cuda.Event(enable_timing=True)
-        start_event.record()
-        metrics = original_step(*args, **kwargs)
-        end_event.record()
-        steps.append({'events': (start_event, end_event)})
-        return metrics
-
     def callback(step, metrics):
-        torch.cuda.synchronize()
-        now = launch_counts(resblock, viterbi)
-        steps[-1].update(
-            step=step, launches={k: now[k] - last.get(k, 0) for k in now},
-            losses={k: float(v) for k, v in metrics.items()
-                    if k.startswith('loss/')})
-        last.update(now)
-
-    def counted_evaluate(*args, **kwargs):
-        before = launch_counts(resblock, viterbi)
-        calls = [0]
-
-        def hook(module, inputs, output):
-            if isinstance(module, port.models.HiFiGAN):
-                calls[0] += 1
-                inputs_seen.add(tuple(inputs[0].shape[:2]))
-
-        handle = torch.nn.modules.module.register_module_forward_hook(
-            hook)
-        start = time.perf_counter()
-        try:
-            original_evaluate(*args, **kwargs)
-            torch.cuda.synchronize()
-        finally:
-            handle.remove()
-        after = launch_counts(resblock, viterbi)
-        validations.append(dict(
-            seconds=time.perf_counter() - start, generator_calls=calls[0],
-            launches={k: after[k] - before[k] for k in after}))
-        last.update(after)
+        steps[-1].update(step=step, losses={
+            k: float(v) for k, v in metrics.items() if k.startswith('loss/')})
 
     def capture(audio, *args, **kwargs):
         if not captured:
@@ -1731,14 +1765,13 @@ def training_path(torch, port, device, config, pitch_model, ppg_model,
         return original_from_audio(audio, *args, **kwargs)
 
     run = train_config.RUNS_DIR / train_config.CONFIG
-    train_core.train_step = timed_step
-    train_core.evaluate = counted_evaluate
+    restore = counted_training(
+        torch, port, steps, validations, inputs_seen, partitions)
     port.preprocess.from_audio = capture
     try:
         results = {}
         for label, stop in (('train', 3), ('resume', 5)):
             reset_launch_counts(resblock, viterbi)
-            last.clear()
             first = len(steps)
             torch.cuda.reset_peak_memory_stats()
             start = time.perf_counter()
@@ -1751,8 +1784,7 @@ def training_path(torch, port, device, config, pitch_model, ppg_model,
                 steps=[entry['step'] for entry in steps[first:]],
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     finally:
-        train_core.train_step = original_step
-        train_core.evaluate = original_evaluate
+        restore()
         port.preprocess.from_audio = original_from_audio
     step_ms = [
         entry['events'][0].elapsed_time(entry['events'][1])
@@ -1782,6 +1814,7 @@ def training_path(torch, port, device, config, pitch_model, ppg_model,
         validations=validations, validation_inputs=sorted(inputs_seen),
         checkpoints=sorted(path.name for path in run.glob('*.pt')))
     emit(**record)
+    MEASURED['host_loader_median_step_ms'] = record['median_step_ms']
     launches['training_steps'] = [entry['launches'] for entry in steps]
     launches['validation'] = validations
     resumed = checkpoint.load(run / 'generator-00000005.pt')
@@ -1792,6 +1825,8 @@ def training_path(torch, port, device, config, pitch_model, ppg_model,
         raise AssertionError('training did not run or resume as it must')
     if any(entry['launches']['resblock'] for entry in steps):
         raise AssertionError('a training step launched the block kernel')
+    if partitions != ['train', 'valid'] * 2:
+        raise AssertionError(f'the host loader read {partitions}')
     if len(validations) != 1 or validations[0]['launches'] != {
             'resblock': 12 * validations[0]['generator_calls'],
             'viterbi': items, 'viterbi_logfreq': 0} or \
@@ -1935,6 +1970,477 @@ def training_path(torch, port, device, config, pitch_model, ppg_model,
     return launches, k1_error, k2_error
 
 
+def counted_training(torch, port, steps, validations, inputs_seen,
+                     partitions):
+    """Wrap the trainer for a phase: each `train_step` timed by CUDA events
+    and its launches counted (appended to `steps`), each validation's
+    generator calls, launches and HiFi-GAN inputs counted (`validations`,
+    `inputs_seen`), and the partitions the host loader is asked for
+    (`partitions`); returns the function that restores it"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    train_core = sys.modules['promonet_tpu_torch.train.core']
+    original_step = train_core.train_step
+    original_evaluate = train_core.evaluate
+    original_loader = port.data.loader
+
+    def timed_step(*args, **kwargs):
+        before = launch_counts(resblock, viterbi)
+        start_event = torch.cuda.Event(enable_timing=True)
+        end_event = torch.cuda.Event(enable_timing=True)
+        start_event.record()
+        metrics = original_step(*args, **kwargs)
+        end_event.record()
+        after = launch_counts(resblock, viterbi)
+        steps.append({'events': (start_event, end_event),
+                      'launches': {k: after[k] - before[k] for k in after}})
+        return metrics
+
+    def counted_evaluate(*args, **kwargs):
+        before = launch_counts(resblock, viterbi)
+        calls = [0]
+
+        def hook(module, inputs, output):
+            if isinstance(module, port.models.HiFiGAN):
+                calls[0] += 1
+                inputs_seen.add(tuple(inputs[0].shape[:2]))
+
+        handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        start = time.perf_counter()
+        try:
+            original_evaluate(*args, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            handle.remove()
+        after = launch_counts(resblock, viterbi)
+        validations.append(dict(
+            seconds=time.perf_counter() - start, generator_calls=calls[0],
+            launches={k: after[k] - before[k] for k in after}))
+
+    def loader(dataset, partition, *args, **kwargs):
+        partitions.append(partition)
+        return original_loader(dataset, partition, *args, **kwargs)
+
+    train_core.train_step = timed_step
+    train_core.evaluate = counted_evaluate
+    port.data.loader = loader
+
+    def restore():
+        train_core.train_step = original_step
+        train_core.evaluate = original_evaluate
+        port.data.loader = original_loader
+
+    return restore
+
+
+def resident_training_path(torch, port, device, config, directory):
+    """Phase 15a: the default configuration trained at full width from the
+    device-resident corpus, which RESIDENT_DATA = None turns on for the
+    card: phase 15's training partition packed on the host and copied to
+    the card once; `crops` on the card against the CPU for the same rows
+    and starts (equal) and 4096 draws within their stems; `train` for 4
+    steps (STEPS_PER_DISPATCH auto: one dispatch of 4) with validation at
+    step 0, resumed to 6 with STEPS_PER_DISPATCH = 2, each step timed by
+    CUDA events; the host loader asked for the validation partition
+    alone; one profiled dispatch; K1 held to its plain version at the
+    validation's shapes. Returns the launch counts of each part and the
+    largest K1 error at batch 1"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    train_core = sys.modules['promonet_tpu_torch.train.core']
+    resident = port.data.resident
+    directory = Path(directory)
+    train_config = corpus_config(
+        config, directory, RUNS_DIR=directory / 'runs-resident')
+    if not train_core.resident_data(train_config, device):
+        raise AssertionError('RESIDENT_DATA = None is not resident on the card')
+    chunk_frames = train_config.CHUNK_SIZE // train_config.HOPSIZE
+    launches = {}
+
+    # The partition packed on the host, then copied to the card once
+    start = time.perf_counter()
+    packed = resident.pack('synthetic', 'train', train_config)
+    pack_seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    data = resident.to_device(packed, device)
+    torch.cuda.synchronize()
+    upload_seconds = time.perf_counter() - start
+    card_bytes = sum(
+        tensor.numel() * tensor.element_size() for tensor in data.values())
+
+    # The gather on the card against the CPU, and the starts in range
+    sampler = torch.Generator(device=device).manual_seed(5)
+    rows, starts = resident.draw(
+        data, sampler, train_config.BATCH_SIZE, chunk_frames)
+    card = resident.crops(data, rows, starts, chunk_frames)
+    cpu = resident.crops(
+        {name: torch.from_numpy(value) for name, value in packed.items()},
+        rows.cpu(), starts.cpu(), chunk_frames)
+    crops_equal = {
+        name: bool(torch.equal(card[name].cpu(), value))
+        for name, value in cpu.items()}
+    many_rows, many_starts = resident.draw(data, sampler, 4096, chunk_frames)
+    within = bool((
+        (many_starts >= 0) &
+        (many_starts <= data['lengths'][many_rows] - chunk_frames)).all())
+    record = dict(
+        phase='resident_corpus', stems=len(packed['lengths']),
+        card_bytes=card_bytes, card_gb=card_bytes / 1e9,
+        pack_seconds=pack_seconds, upload_seconds=upload_seconds,
+        crops_equal_to_cpu=crops_equal, starts_within_stems=within,
+        distinct_stems_in_4096_draws=len(set(many_rows.tolist())))
+    emit(**record)
+    if not all(crops_equal.values()) or not within:
+        raise AssertionError('the resident crops are wrong')
+
+    # Training: 4 steps in one dispatch, then resumed to 6 in two
+    steps, validations, inputs_seen, partitions, callbacks = \
+        [], [], set(), [], []
+
+    def callback(step, metrics):
+        callbacks.append((step, {
+            name: float(value) for name, value in metrics.items()
+            if name.startswith('loss/')}))
+
+    run = train_config.RUNS_DIR / train_config.CONFIG
+    restore = counted_training(
+        torch, port, steps, validations, inputs_seen, partitions)
+    try:
+        results = {}
+        for label, stop, dispatch in (('train', 4, None), ('resume', 6, 2)):
+            run_config = train_config.replace(STEPS_PER_DISPATCH=dispatch)
+            first, first_callback = len(steps), len(callbacks)
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            state = port.train(
+                run, 'synthetic', steps=stop, config=run_config,
+                device=device, callback=callback)
+            torch.cuda.synchronize()
+            results[label] = dict(
+                seconds=time.perf_counter() - start,
+                steps_per_dispatch=train_core.steps_per_dispatch(
+                    stop, run_config),
+                steps=len(steps) - first,
+                callbacks=[step for step, _ in callbacks[first_callback:]],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        restore()
+    step_ms = [entry['events'][0].elapsed_time(entry['events'][1])
+               for entry in steps]
+    # The first step of each call builds cuDNN's plans: not timed
+    timed = [ms for i, ms in enumerate(step_ms) if i not in (0, 4)]
+    finite = all(np.isfinite(value) for _, losses in callbacks
+                 for value in losses.values())
+    resumed = port.utils.checkpoint.load(run / 'generator-00000006.pt')
+    launches['resident_steps'] = [entry['launches'] for entry in steps]
+    launches['validation'] = validations
+    items = train_config.DEFAULT_EVALUATION_STEPS
+    median = float(np.median(timed))
+    record = dict(
+        phase='resident_training', batch=train_config.BATCH_SIZE,
+        chunk=train_config.CHUNK_SIZE, precision=train_config.PRECISION,
+        remat=train_config.REMAT,
+        width=train_config.HIFIGAN_UPSAMPLE_INITIAL_SIZE, runs=results,
+        step_ms=step_ms, median_step_ms=median,
+        steps_per_second=1e3 / median,
+        host_loader_median_step_ms=MEASURED.get(
+            'host_loader_median_step_ms'),
+        losses=callbacks, finite=finite,
+        host_loader_partitions=partitions,
+        step_launches=launches['resident_steps'], validations=validations,
+        validation_inputs=sorted(inputs_seen),
+        checkpoints=sorted(path.name for path in run.glob('*.pt')))
+    emit(**record)
+    if not finite or [results[label]['steps_per_dispatch'] for label in
+                      ('train', 'resume')] != [4, 2] or \
+            [results[label]['steps'] for label in ('train', 'resume')] != \
+            [4, 2] or results['train']['callbacks'] != [3] or \
+            results['resume']['callbacks'] != [5] or \
+            resumed['step'] != 6 or resumed['optimizer']['step'] != 6:
+        raise AssertionError('resident training did not run or resume')
+    if partitions != ['valid', 'valid']:
+        raise AssertionError(f'the host loader read {partitions}')
+    if any(entry['launches']['resblock'] for entry in steps):
+        raise AssertionError('a resident step launched the block kernel')
+    if len(validations) != 1 or validations[0]['launches'] != {
+            'resblock': 12 * items, 'viterbi': items,
+            'viterbi_logfreq': 0} or \
+            validations[0]['generator_calls'] != items:
+        raise AssertionError(f'validation launched {validations}')
+
+    # One dispatch of two steps, as the trainer runs it, profiled
+    def dispatch():
+        for _ in range(2):
+            batch = resident.sample(
+                data, sampler, train_config.BATCH_SIZE, train_config)
+            batch['spectrograms'] = port.preprocess.spectrogram.from_audio(
+                batch['audio'], train_config)
+            train_core.train_step(state, batch)
+
+    profiled = device_busy(torch, dispatch, top=8)
+    emit(phase='resident_profile', profiled_dispatch=profiled,
+         idle_share=idle_share(profiled),
+         device_events_per_step=None if profiled['kernels'] is None
+         else profiled['kernels'] / 2)
+
+    # K1 at the validation's (batch, frames), and at batch 2 with the
+    # zeroed-bias control
+    rng = np.random.default_rng(19)
+    k1_checks = [
+        (frames, channels, KERNEL_SIZES, ((batch, frames), (2, frames)))
+        for batch, bucket in sorted(inputs_seen)
+        for frames, channels in stage_shapes(train_config, bucket)]
+    k1_error = check_blocks(
+        torch, rng, resblock, device, k1_checks, 'resident_check')
+    del data, state
+    torch.cuda.empty_cache()
+    return launches, k1_error
+
+
+def pause_notify_path(torch, port, device, config, directory):
+    """Phase 15b: a resident run of 8 steps (dispatches of 2) on a thread;
+    after its second dispatch this thread takes `utils.pause.exclusive`
+    (the trainer's callback waits for the request, so that the trainer
+    meets it at step 4): the trainer must acknowledge, having written a
+    checkpoint at step 4, and take no step while paused (its step count and a
+    checksum of the generator's trainable weights the same across 2 s);
+    released, the run finishes. notifications.jsonl must hold this
+    train's start and completion, and that of phase 14 each of its
+    evaluate.datasets calls'. Returns the launch counts of the run"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    train_core = sys.modules['promonet_tpu_torch.train.core']
+    pause = port.utils.pause
+    directory = Path(directory)
+    train_config = corpus_config(
+        config, directory, RUNS_DIR=directory / 'runs-pause',
+        STEPS_PER_DISPATCH=2, DEFAULT_EVALUATION_STEPS=2)
+    run = train_config.RUNS_DIR / train_config.CONFIG
+    total = 8
+    taken, states, errors = [0], [], []
+    progressed, finished = threading.Event(), threading.Event()
+    original_step = train_core.train_step
+
+    def counting_step(state, batch, **kwargs):
+        if not states:
+            states.append(state)
+        taken[0] += 1
+        return original_step(state, batch, **kwargs)
+
+    def callback(step, metrics):
+        # After the second dispatch, wait for the request: the trainer
+        # then meets it at the next dispatch's pause check
+        if step == 3:
+            progressed.set()
+            deadline = time.perf_counter() + 300
+            while not pause.pause_file(train_config).exists() and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.001)
+
+    def training():
+        try:
+            port.train(run, 'synthetic', steps=total, config=train_config,
+                       device=device, callback=callback)
+        except Exception as error:
+            errors.append(error)
+        finally:
+            progressed.set()
+            finished.set()
+
+    def checksum():
+        with torch.no_grad():
+            return sum(float(tensor.double().sum())
+                       for tensor in states[0].trainable.values())
+
+    reset_launch_counts(resblock, viterbi)
+    train_core.train_step = counting_step
+    try:
+        thread = threading.Thread(target=training, daemon=True)
+        thread.start()
+        progressed.wait(900)
+        if errors or not progressed.is_set():
+            raise AssertionError(f'the paused run did not start: {errors}')
+        requested = time.perf_counter()
+        with pause.exclusive(
+                timeout=300, poll_seconds=0.01, config=train_config) as acked:
+            latency = time.perf_counter() - requested
+            paused_at = taken[0]
+            held = [(taken[0], checksum())]
+            time.sleep(2.)
+            held.append((taken[0], checksum()))
+            saved = sorted(path.name for path in run.glob('generator-*.pt'))
+        finished.wait(900)
+    finally:
+        train_core.train_step = original_step
+    if errors or not finished.is_set():
+        raise AssertionError(f'the paused run did not finish: {errors}')
+    thread.join(60)
+    launches = launch_counts(resblock, viterbi)
+    final = port.utils.checkpoint.load(run / f'generator-{total:08d}.pt')
+    statuses = notifications(train_config.RUNS_DIR)
+    record = dict(
+        phase='pause_notify', acknowledged=acked,
+        request_to_ack_seconds=latency, paused_at_step=paused_at,
+        held=held, checkpoints_while_paused=saved, final_step=final['step'],
+        steps_taken=taken[0], notifications=statuses,
+        evaluation_notifications=MEASURED.get('evaluation_notifications'),
+        protocol_files_left=sorted(
+            path.name for path in train_config.RUNS_DIR.iterdir()
+            if path.name in ('PAUSE', 'PAUSE.ack', 'trainer.pid')),
+        launches=launches)
+    emit(**record)
+    if not acked or held[0] != held[1] or paused_at != 4 or \
+            f'generator-{paused_at:08d}.pt' not in saved or \
+            final['step'] != total or taken[0] != total or \
+            statuses != [['train', 'started'], ['train', 'completed']] or \
+            record['protocol_files_left']:
+        raise AssertionError('the pause or the notifications are wrong')
+    return launches
+
+
+def data_parallel_path(torch, port, device, config, directory):
+    """Phase 15c: a process group of one rank under NCCL (a FileStore under
+    build/): `train` at full width for 2 steps (one resident dispatch),
+    its all-reduces counted and its metrics finite; then from the same
+    seeded state and batch two steps without the group, whose spread is
+    the card's run-to-run bound, and one step as rank 0 of the group, whose
+    losses must lie within that spread or 1e-3 relative. Returns the
+    launch counts of the run"""
+    import torch.distributed as dist
+    from promonet_tpu_torch.ops import resblock, viterbi
+    train_core = sys.modules['promonet_tpu_torch.train.core']
+    parallel = port.parallel
+    resident = port.data.resident
+    directory = Path(directory)
+    train_config = corpus_config(
+        config, directory, RUNS_DIR=directory / 'runs-parallel',
+        DEFAULT_EVALUATION_STEPS=2)
+    dist.init_process_group(
+        'nccl', init_method=f'file://{directory / "store"}', rank=0,
+        world_size=1)
+    try:
+        mesh = parallel.create_mesh(config=train_config, device=device)
+        losses = []
+        reset_launch_counts(resblock, viterbi)
+        issued = parallel.all_reduce_mean.launches
+        start = time.perf_counter()
+        port.train(
+            train_config.RUNS_DIR / train_config.CONFIG, 'synthetic',
+            steps=2, config=train_config, device=device,
+            callback=lambda step, metrics: losses.append({
+                name: float(value) for name, value in metrics.items()}))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        issued = parallel.all_reduce_mean.launches - issued
+        launches = launch_counts(resblock, viterbi)
+
+        # The same state and batch, without the group and as its rank 0
+        data = resident.to_device(
+            resident.pack('synthetic', 'train', train_config), device)
+        batch = resident.sample(
+            data, torch.Generator(device=device).manual_seed(13),
+            train_config.BATCH_SIZE, train_config)
+        batch['spectrograms'] = port.preprocess.spectrogram.from_audio(
+            batch['audio'], train_config)
+        steps = {}
+        for label in ('unsharded', 'unsharded_again', 'rank_0_of_1'):
+            state = train_core.create_state(train_config, device)
+            if label == 'rank_0_of_1':
+                state.mesh = mesh
+            steps[label] = {
+                name: float(value) for name, value in
+                train_core.average_metrics(train_core.train_step(
+                    state, batch), state.mesh).items()
+                if name.startswith('loss/')}
+            del state
+        del data, batch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    def relative(a, b):
+        return max(abs(a[name] - b[name]) / max(abs(b[name]), 1e-12)
+                   for name in b)
+
+    spread = relative(steps['unsharded_again'], steps['unsharded'])
+    difference = relative(steps['rank_0_of_1'], steps['unsharded'])
+    record = dict(
+        phase='data_parallel', backend='nccl', world=mesh.world,
+        mesh=mesh.shape, seconds=seconds, all_reduces=issued,
+        losses=losses, finite=all(
+            np.isfinite(value) for entry in losses
+            for value in entry.values()),
+        steps=steps, run_to_run_spread=spread,
+        rank_0_of_1_difference=difference,
+        bound=max(spread, 1e-3), launches=launches)
+    emit(**record)
+    # One dispatch of two steps: two gradient buckets a step, the metrics
+    if not record['finite'] or issued != 5 or len(losses) != 1 or \
+            difference > record['bound'] or dist.is_initialized():
+        raise AssertionError('the data-parallel run is wrong')
+    return launches
+
+
+def plot_path(torch, port, device, config, directory, encoder):
+    """Phase 22a: the speaker encoder's embeddings (on the card) of phase
+    15's 96 utterances, laid out by `plot.umap.UMAP` on the host (seconds,
+    and the ratio of the mean distance to the own speaker's centroid to
+    the mean distance between centroids); where matplotlib imports, the
+    prosody figure of one validation item and the speaker figure saved
+    under build/figures/"""
+    train_config = corpus_config(config, directory)
+    cache = train_config.CACHE_DIR / 'synthetic'
+    wavs = sorted(
+        path for path in cache.glob('*/*.wav') if path.stem.endswith('-100'))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    embeddings = np.stack([
+        port.preprocess.speaker.from_audio(
+            port.load.audio(wav, train_config), encoder,
+            config=train_config, device=device).float().cpu().numpy().reshape(
+                -1)
+        for wav in wavs])
+    embed_seconds = time.perf_counter() - start
+    labels = np.array([int(wav.parent.name) for wav in wavs])
+    start = time.perf_counter()
+    layout = port.plot.umap.UMAP().fit_transform(embeddings)
+    umap_seconds = time.perf_counter() - start
+    centroids = {label: layout[labels == label].mean(0)
+                 for label in np.unique(labels)}
+    within = float(np.mean([
+        np.linalg.norm(point - centroids[label])
+        for point, label in zip(layout, labels)]))
+    between = float(np.mean([
+        np.linalg.norm(centroids[a] - centroids[b])
+        for a in centroids for b in centroids if a < b]))
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        figures = 'matplotlib not installed'
+    else:
+        output = ROOT / 'build' / 'figures'
+        output.mkdir(parents=True, exist_ok=True)
+        stem = port.load.partition('synthetic', False, train_config)[
+            'valid'][0]
+        port.plot.from_file_to_file(
+            output / 'prosody.png', audio_file=cache / f'{stem}.wav',
+            prefix=cache / stem, target_prefix=cache / stem,
+            config=train_config)
+        figure = port.plot.speaker.from_embeddings(embeddings, labels)
+        figure.savefig(output / 'speakers.png')
+        import matplotlib.pyplot as plt
+        plt.close(figure)
+        figures = sorted(str(path.relative_to(ROOT))
+                         for path in output.glob('*.png'))
+    record = dict(
+        phase='plot', utterances=len(wavs), speakers=len(centroids),
+        embedding_seconds=embed_seconds, umap_seconds=umap_seconds,
+        within_to_between_centroid_distance=within / between,
+        finite=bool(np.isfinite(layout).all()), figures=figures)
+    emit(**record)
+    if len(wavs) != TRAIN_CORPUS['speakers'] * TRAIN_CORPUS['utterances'] \
+            or not record['finite'] or layout.shape != (len(wavs), 2):
+        raise AssertionError('the speaker layout is wrong')
+
+
 # FARGAN's training corpus: 16 speakers x 8 utterances x 1 s; the
 # partition keeps six per speaker for training (96 stems, 288 items with
 # their augmented copies: one batch of configs/fargan.py's 256) and one
@@ -1977,7 +2483,7 @@ def fargan_training_path(torch, port, device, config, pitch_model,
             PARTITIONS_DIR=directory / 'partitions',
             AUGMENT_DIR=directory / 'augmentations',
             RUNS_DIR=directory / 'runs', CHECKPOINTS_DIR=checkpoints,
-            NUM_WORKERS=8)
+            NUM_WORKERS=8, RESIDENT_DATA=False)
 
         reset_launch_counts(resblock, viterbi)
         start = time.perf_counter()
@@ -3128,6 +3634,17 @@ def main():
     k1_error = max(k1_error, k1_training_error)
     k2_error = max(k2_error, k2_training_error)
 
+    # 15a to 15c. Resident training, the pause and the notifications, one
+    # rank under NCCL; on the corpus of phase 15
+    path_launches['resident_training'], k1_resident_error = \
+        resident_training_path(
+            torch, port, device, config, corpus_directory.name)
+    k1_error = max(k1_error, k1_resident_error)
+    path_launches['pause_notify'] = pause_notify_path(
+        torch, port, device, config, corpus_directory.name)
+    path_launches['data_parallel'] = data_parallel_path(
+        torch, port, device, config, corpus_directory.name)
+
     # 16 to 18. FARGAN training, the exported program and the pack CLI,
     # CARGAN
     path_launches['fargan_training'] = fargan_training_path(
@@ -3154,6 +3671,11 @@ def main():
             torch, port, device, config, audio,
             port.load.speaker_encoder(config=extractor_config, device=device))
     k2_error = max(k2_error, k2_extractor_error, k2_probabilities_error)
+
+    # 22a. The speaker layout and the figures
+    plot_path(torch, port, device, config, corpus_directory.name,
+              port.load.speaker_encoder(
+                  config=extractor_config, device=device))
     corpus_directory.cleanup()
 
     # 23. Kernel times at the main path's shapes

@@ -22,8 +22,13 @@ training and speaker adaptation (`train`, `models.Discriminator`,
 promonet_tpu_torch.{train,adapt}`; FARGAN's training route), the WORLD
 baseline (`baseline.world`) and its evaluation, packed features and the
 exported packed-inference program (`models.export`, `data.pack`),
-CARGAN (`models.cargan`), and the dataset command lines (`python -m
-promonet_tpu_torch.{partition,data.preprocess,data.pack,models.export}`).
+CARGAN (`models.cargan`), the dataset command lines (`python -m
+promonet_tpu_torch.{partition,data.preprocess,data.pack,models.export}`),
+device-resident training data with several steps a dispatch
+(`data.resident`), data-parallel training over `torch.distributed`
+(`parallel`, `torchrun -m promonet_tpu_torch.train`), the trainer's
+pause protocol and job notifications (`utils.pause`, `utils.notify`),
+and figures (`plot`, `python -m promonet_tpu_torch.plot`).
 Each Pallas kernel of
 the JAX package is a hand-written CUDA kernel here (`csrc/`), beside a
 plain PyTorch version that serves CPU tensors. Entry points run on the
@@ -45,6 +50,7 @@ from . import edit
 from . import load
 from . import models
 from . import ops
+from . import parallel
 from . import partition
 from . import preprocess
 from . import synthesize
@@ -52,4 +58,5 @@ from . import baseline
 from . import evaluate
 from .train import loss, train
 from . import adapt
+from . import plot
 from . import utils

@@ -4,12 +4,12 @@ A copy of the constants that the port reads from the JAX package's
 defaults (`promonet_tpu/config/defaults.py`). Names and values are
 identical, so the same override files (`configs/*.py`,
 `runs/<run>/<config>.py`) configure both packages. Constants the port
-does not read (the TPU's device-resident data and dispatch settings, the
-FARGAN_* settings the JAX generator ignores) are left out; an override
-file may still set them, and they are carried on the `Config` object
-unread. Every directory the port writes (the dataset cache, its
-partitions, evaluation artefacts and results) lies under `data/` at the
-root of the repository, outside the JAX package.
+does not read (the TPU's conv lowering and Pallas switch, the FARGAN_*
+settings the JAX generator ignores, the unused VITS and loss settings)
+are left out; an override file may still set them, and they are carried
+on the `Config` object unread. Every directory the port writes (the
+dataset cache, its partitions, evaluation artefacts and results) lies
+under `data/` at the root of the repository, outside the JAX package.
 """
 from pathlib import Path
 
@@ -318,8 +318,18 @@ EVALUATION_INTERVAL = 2500  # steps
 # Validation items per evaluation pass
 DEFAULT_EVALUATION_STEPS = 16
 
-# Validation items whose audio is logged (TensorBoard) per pass
+# Validation items whose audio and prosody figure are logged (TensorBoard)
+# per pass
 PLOT_EXAMPLES = 10
+
+# Panels drawn by the plotting module when none are requested
+DEFAULT_PLOT_FEATURES = ['audio', 'loudness', 'pitch', 'periodicity', 'ppg']
+
+# Per-frame error tolerances: a frame counts as wrong past these
+ERROR_THRESHOLD_LOUDNESS = 6.  # decibels
+ERROR_THRESHOLD_PERIODICITY = .1
+ERROR_THRESHOLD_PITCH = 50.  # cents
+ERROR_THRESHOLD_PPG = .1  # JSD
 
 
 ###############################################################################
@@ -400,3 +410,21 @@ OPTIMIZER = {
 # Recompute each residual Block's and each discriminator's activations in
 # the backward pass (torch.utils.checkpoint)
 REMAT = True
+
+# Sizes of the axes of the process mesh (`parallel.create_mesh`). None
+# puts every process of the group on the 'data' axis; training splits the
+# batch over 'data' and all-reduces the gradients (`torch.distributed`)
+MESH_SHAPE = None  # e.g. {'data': 4}
+
+# Training steps run back to back from the device-resident corpus before
+# the host looks at the run again (`train.core.steps_per_dispatch`): the
+# metrics, evaluation, checkpoints and the pause check come once per
+# dispatch. None = auto (the largest divisor <= 32 of every step cadence)
+STEPS_PER_DISPATCH = None
+
+# Device-resident training data (`data.resident`): the whole preprocessed
+# training partition is packed and copied to the card once, and each
+# step's crops are drawn on the card instead of read by the host loader.
+# None = auto: on for a CUDA device when the model trains on
+# interpretable features (not under SPECTROGRAM_ONLY)
+RESIDENT_DATA = None

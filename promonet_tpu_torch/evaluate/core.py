@@ -61,6 +61,8 @@ from ..preprocess import text as text_module
 from ..utils import audio as audio_module
 from ..utils import checkpoint as checkpoint_module
 from ..utils import cli
+from ..utils import pause
+from ..utils.notify import notify
 from ..utils.timer import Timer
 from .metrics import Metrics
 
@@ -68,6 +70,7 @@ from .metrics import Metrics
 PREDICTED = ('loudness', 'pitch', 'periodicity', 'ppg')
 
 
+@notify('evaluate')
 def datasets(
     datasets=None,
     checkpoint=None,
@@ -96,8 +99,19 @@ def datasets(
     The pitch CNN and the PPG encoder are `load.pitch_model` and
     `load.ppg_model` of config. Transcripts are scored where
     `preprocess.text.available`.
+
+    The run is reported by `utils.notify` ('evaluate') and holds the card
+    alone (`utils.pause.exclusive`): a trainer registered under
+    config.RUNS_DIR is paused for its duration, so that no timed phase
+    measures contention.
     """
     config = config_module.default() if config is None else config
+    with pause.exclusive(config=config):
+        return _datasets(
+            datasets, checkpoint, gpu, max_stems, adapt, config, device)
+
+
+def _datasets(datasets, checkpoint, gpu, max_stems, adapt, config, device):
     if gpu is not None:
         device = cli.device(gpu)
     device = device_module.resolve(device)

@@ -8,5 +8,6 @@ from .core import (
     generator_args,
     load_checkpoint,
     save_checkpoint,
+    steps_per_dispatch,
     train,
     train_step)

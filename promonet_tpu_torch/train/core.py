@@ -43,14 +43,39 @@ each item's audio start FARGAN's history (`previous_samples_of`), and
 they replace that many generated samples before any loss or
 discriminator sees the output; validation passes them too.
 
-Only the host loader feeds the card: the JAX package's device-resident
-data, dispatch fusion, conv lowering, pause and notify hooks are TPU or
-host-service matters and are not ported. The HiFi-GAN, FARGAN and Vocos
-generators train, over interpretable features or (SPECTROGRAM_ONLY, the
-`MelGenerator`) over spectrograms.
+The HiFi-GAN, FARGAN and Vocos generators train, over interpretable
+features or (SPECTROGRAM_ONLY, the `MelGenerator`) over spectrograms.
+
+Training data comes from the host loader (`data.loader`), or, where
+RESIDENT_DATA resolves on (by default on a CUDA device, unless
+SPECTROGRAM_ONLY or ZERO_SHOT), from the whole training partition copied
+to the card once (`data.resident`): each step's crops are drawn and
+gathered on the card, and the mel loss's target spectrogram is computed
+from the audio crop there. The resident path runs `steps_per_dispatch`
+steps back to back with no host read between them; the metrics passed to
+`callback` and logged are the last step's, and evaluation, checkpoints,
+the progress line and the pause check come at dispatch boundaries, as in
+the JAX package. The host loader takes one step per dispatch.
+
+Data parallelism (`parallel`, one process per card under `torchrun`):
+the global batch of BATCH_SIZE is split over the mesh's 'data' axis (the
+host batch by `parallel.shard_batch`, the resident corpus by its stems
+and `data.resident.sample_sharded`); each model's gradients are averaged
+over the world as one flat all-reduce before the generator's gradient
+max, min and clip, and before each optimizer step, so every rank takes
+the same step; the metrics of each dispatch are averaged over the ranks.
+Rank 0 alone validates and writes checkpoints, metrics, notifications and
+the pause protocol's files; the other ranks wait for it at a barrier.
+
+A run is wrapped in `utils.notify.notify('train')`, registers with
+`utils.pause` and, once per dispatch, touches the heartbeat and honours a
+pause request: it synchronizes the card, writes a checkpoint, and idles
+until released.
 """
+import math
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -61,13 +86,18 @@ from .. import config as config_module
 from .. import data
 from .. import device as device_module
 from .. import load
+from .. import parallel
+from .. import plot
 from .. import preprocess
+from ..data import resident as resident_module
 from ..evaluate.metrics import Metrics
 from ..models import Discriminator, Generator, MelGenerator, fargan, init
 from ..models.modules import materialize, normed, split
 from ..utils import checkpoint as checkpoint_module
 from ..utils import cli
 from ..utils import log
+from ..utils import pause
+from ..utils.notify import notify
 from . import loss as loss_module
 
 
@@ -76,6 +106,7 @@ from . import loss as loss_module
 ###############################################################################
 
 
+@notify('train')
 def train(
     directory,
     dataset=None,
@@ -103,8 +134,12 @@ def train(
             when adapting)
         config: a `config.Config`; None reads the environment's
         device: where to train; 'cuda' raises on a host without a card
-        callback: called as callback(step, metrics) after each step, the
-            metrics tensors on the device
+        callback: called as callback(step, metrics) after each dispatch,
+            with the dispatch's last step and its metrics, tensors on the
+            device
+
+    In an initialised `torch.distributed` process group the run is one
+    rank of a data-parallel run (`parallel.create_mesh`).
     """
     config = config_module.default() if config is None else config
     _check_trainable(config)
@@ -120,15 +155,33 @@ def train(
         if adapt_from:
             steps += config.ADAPTATION_STEPS
 
-    train_loader = data.loader(
-        dataset, train_partition, config, native=device.type == 'cuda')
-    if len(train_loader) == 0:
-        # The JAX trainer waits forever for a batch here
+    mesh = parallel.create_mesh(config=config, device=device)
+    lead = mesh.rank == 0
+    shards, shard = mesh.size('data'), mesh.coordinate('data')
+    if config.BATCH_SIZE % shards:
         raise ValueError(
-            f'Partition {train_partition!r} of {dataset!r} has '
-            f'{len(train_loader.dataset)} items, fewer than one batch of '
-            f'BATCH_SIZE = {config.BATCH_SIZE}')
-    valid_loader = data.loader(dataset, valid_partition, config)
+            f'BATCH_SIZE = {config.BATCH_SIZE} does not divide over the '
+            f'{shards} ranks of the data axis')
+
+    resident = resident_data(config, device)
+    if resident:
+        train_data = resident_module.to_device(
+            resident_module.pack(dataset, train_partition, config), device,
+            shard, shards)
+        sampler = torch.Generator(device=device).manual_seed(
+            config.RANDOM_SEED + 2 + shard)
+        train_loader = None
+    else:
+        train_loader = data.loader(
+            dataset, train_partition, config, native=device.type == 'cuda')
+        if len(train_loader) == 0:
+            # The JAX trainer waits forever for a batch here
+            raise ValueError(
+                f'Partition {train_partition!r} of {dataset!r} has '
+                f'{len(train_loader.dataset)} items, fewer than one batch '
+                f'of BATCH_SIZE = {config.BATCH_SIZE}')
+    valid_loader = (
+        data.loader(dataset, valid_partition, config) if lead else None)
 
     state = create_state(config, device)
     latest = checkpoint_module.latest_path(directory)
@@ -137,30 +190,65 @@ def train(
         step, epoch = load_checkpoint(state, source)
     else:
         step, epoch = 0, 0
+    state.mesh = mesh
+    parallel.shard_pytree(
+        [state.trainable, dict(state.discriminator.named_parameters())],
+        mesh)
 
     # Validation's feature extractors (K2 decodes the pitch on the card)
     extractors = (
         load.pitch_model(config=config, device=device)
         if config.PITCH_ESTIMATOR == 'cnn' else None,
-        load.ppg_model(config=config, device=device))
+        load.ppg_model(config=config, device=device)) if lead else None
+
+    def batches():
+        """This rank's host batches, on the device"""
+        nonlocal epoch
+        while True:
+            train_loader.sampler.set_epoch(epoch)
+            for batch in train_loader:
+                # Skip examples that are too short
+                if batch['audio'].shape[-1] < config.CHUNK_SIZE:
+                    continue
+                yield to_device(parallel.shard_batch(batch, mesh), device)
+            epoch += 1
+
+    def resident_batch():
+        """This rank's crops of the resident corpus, drawn on the card"""
+        batch = resident_module.sample_sharded(
+            train_data, sampler, shard, shards, config.BATCH_SIZE, config)
+        batch['spectrograms'] = preprocess.spectrogram.from_audio(
+            batch['audio'], config)
+        return batch
+
+    host_batches = None if resident else batches()
+    advance = steps_per_dispatch(steps, config) if resident else 1
+    drain = pause.synchronize(device)
+
+    def on_pause():
+        save_checkpoint(directory, state, step, epoch)
 
     progress_interval = 2000
     progress_clock, progress_step = time.time(), step
-    done = False
-    while not done:
-        train_loader.sampler.set_epoch(epoch)
-        for batch in train_loader:
-            # Skip examples that are too short
-            if batch['audio'].shape[-1] < config.CHUNK_SIZE:
-                continue
-            metrics = train_step(
-                state, to_device(batch, device),
-                discriminate=step >= config.DISCRIMINATOR_START_STEP,
-                adversarial=step >= config.ADVERSARIAL_LOSS_START_STEP)
-            if callback is not None:
-                callback(step, metrics)
+    if lead:
+        pause.register_trainer(config)
+    try:
+        while True:
+            if lead:
+                pause.heartbeat(config)
+            _maybe_pause(mesh, drain, on_pause, config)
 
-            if step and step % progress_interval == 0:
+            for _ in range(advance):
+                batch = resident_batch() if resident else next(host_batches)
+                metrics = train_step(
+                    state, batch,
+                    discriminate=step >= config.DISCRIMINATOR_START_STEP,
+                    adversarial=step >= config.ADVERSARIAL_LOSS_START_STEP)
+            metrics = average_metrics(metrics, mesh)
+            if callback is not None:
+                callback(step + advance - 1, metrics)
+
+            if lead and step and step % progress_interval < advance:
                 now = time.time()
                 rate = (step - progress_step) / max(now - progress_clock, 1e-9)
                 print(
@@ -171,22 +259,103 @@ def train(
                 progress_clock, progress_step = now, step
 
             if step % config.EVALUATION_INTERVAL == 0:
-                log.update(directory, step, scalars={
-                    name: float(value) for name, value in metrics.items()})
-                evaluate(directory, step, state, valid_loader, extractors)
+                if lead:
+                    log.update(directory, step, scalars={
+                        name: float(value) for name, value in metrics.items()})
+                    evaluate(directory, step, state, valid_loader, extractors)
+                _barrier(mesh)
 
             if step and step % config.CHECKPOINT_INTERVAL == 0:
-                save_checkpoint(directory, state, step, epoch)
+                if lead:
+                    save_checkpoint(directory, state, step, epoch)
+                _barrier(mesh)
 
-            step += 1
+            step += advance
             if step >= steps:
-                done = True
                 break
-        else:
-            epoch += 1
 
-    save_checkpoint(directory, state, step, epoch)
+        drain()
+    finally:
+        if lead:
+            pause.unregister_trainer(config)
+    if lead:
+        save_checkpoint(directory, state, step, epoch)
+    _barrier(mesh)
     return state
+
+
+def resident_data(config, device):
+    """Whether a run trains from the device-resident corpus: RESIDENT_DATA,
+    or where that is None, on a CUDA device unless SPECTROGRAM_ONLY (as
+    the JAX package on its accelerator) or ZERO_SHOT (whose x-vectors the
+    resident corpus does not carry)"""
+    if config.RESIDENT_DATA is not None:
+        return bool(config.RESIDENT_DATA)
+    return (torch.device(device).type == 'cuda' and
+            not config.SPECTROGRAM_ONLY and not config.ZERO_SHOT)
+
+
+def steps_per_dispatch(total_steps=None, config=None):
+    """Training steps run back to back in one dispatch (resident data)
+
+    STEPS_PER_DISPATCH where it is set; auto (None): the largest K <= 32
+    that divides every step cadence (the evaluation and checkpoint
+    intervals, the loss-warmup boundaries and the total budget), so that
+    every interval event lands exactly on a dispatch boundary.
+    """
+    config = config_module.default() if config is None else config
+    if config.STEPS_PER_DISPATCH is not None:
+        return max(1, int(config.STEPS_PER_DISPATCH))
+    cadence = math.gcd(config.EVALUATION_INTERVAL, config.CHECKPOINT_INTERVAL)
+    for boundary in (
+        config.DISCRIMINATOR_START_STEP,
+        config.ADVERSARIAL_LOSS_START_STEP,
+        total_steps or 0,
+    ):
+        if boundary:
+            cadence = math.gcd(cadence, boundary)
+    for k in range(min(32, cadence), 0, -1):
+        if cadence % k == 0:
+            return k
+    return 1
+
+
+def average_metrics(metrics, mesh):
+    """A step's metrics averaged over the ranks of a process group (one
+    flat all-reduce); the metrics as they are without one"""
+    if mesh is None or not mesh.group:
+        return metrics
+    names = sorted(metrics)
+    values = parallel.all_reduce_mean(
+        [metrics[name].float().reshape(1) for name in names], mesh)
+    return {name: value[0] for name, value in zip(names, values)}
+
+
+def _barrier(mesh):
+    if mesh.group and mesh.world > 1:
+        torch.distributed.barrier()
+
+
+def _maybe_pause(mesh, drain, on_pause, config):
+    """The pause check of a dispatch: rank 0 honours a request
+    (`utils.pause.maybe_pause`); in a world of several ranks it tells the
+    others, which drain and wait for it at a barrier"""
+    if not (mesh.group and mesh.world > 1):
+        return pause.maybe_pause(drain, on_pause=on_pause, config=config)
+    lead = mesh.rank == 0
+    flag = torch.tensor(
+        [float(lead and pause.pause_file(config).exists())],
+        device=mesh.device)
+    torch.distributed.broadcast(flag, src=0)
+    if not flag.item():
+        return False
+    if lead:
+        paused = pause.maybe_pause(drain, on_pause=on_pause, config=config)
+    else:
+        drain()
+        paused = True
+    torch.distributed.barrier()
+    return paused
 
 
 def _check_trainable(config):
@@ -214,6 +383,9 @@ class State:
     discriminator: the `models.Discriminator`
     rng: the `torch.Generator` of FARGAN's training noise, on the
         generator's device, seeded with RANDOM_SEED + 1
+    mesh: the `parallel.Mesh` whose ranks the gradients are averaged
+        over (set by `train`; None trains alone)
+    notes: what the run has reported once (`evaluate`)
     """
 
     def __init__(self, generator, discriminator, config):
@@ -233,6 +405,8 @@ class State:
         self.rng = torch.Generator(
             device=self.trainable[self.names[0]].device).manual_seed(
                 config.RANDOM_SEED + 1)
+        self.mesh = None
+        self.notes = set()
 
     def effective(self):
         """The generator's effective weights, as a state dict"""
@@ -495,7 +669,8 @@ def train_step(state, batch, discriminate=True, adversarial=True,
         parameters = list(discriminator.parameters())
         _apply(
             state.discriminator_optimizer, parameters,
-            _gradients(total, parameters))
+            parallel.all_reduce_mean(
+                _gradients(total, parameters), state.mesh))
         metrics['loss/discriminator/total'] = total.detach()
         for i, value in enumerate(real_losses):
             metrics[f'loss/discriminator/real-{i:02d}'] = value.detach()
@@ -532,7 +707,8 @@ def train_step(state, batch, discriminate=True, adversarial=True,
             aux[f'loss/generator/adversarial-{i:02d}'] = value
 
     parameters = [state.trainable[name] for name in state.names]
-    gradients = _gradients(total, parameters)
+    gradients = parallel.all_reduce_mean(
+        _gradients(total, parameters), state.mesh)
     gradient_max = torch.max(torch.stack([g.max() for g in gradients]))
     gradient_min = torch.min(torch.stack([g.min() for g in gradients]))
     metrics['gradients/max'] = gradient_max
@@ -562,28 +738,29 @@ def evaluate(directory, step, state, valid_loader, extractors,
     the current weights on the inference route, their masked mel loss,
     and their audio preprocessed again and scored against the item's
     features (`evaluate.Metrics`; not under SPECTROGRAM_ONLY, as in the
-    JAX package); logged under 'validation/'. Audio of the first
-    PLOT_EXAMPLES items goes to TensorBoard where it imports.
-    The JAX package also draws prosody figures, which need `plot/`: none
-    are drawn here."""
+    JAX package); logged under 'validation/'. The audio and prosody
+    figure (`plot.from_features`: the re-extracted features against the
+    item's) of the first PLOT_EXAMPLES items go to TensorBoard where it
+    imports. Where matplotlib is not installed no figure is drawn, and
+    that is said once per run; a figure that fails is reported once per
+    run and validation carries on, as in the JAX package. Touches the
+    pause protocol's heartbeat once per item."""
     config = state.config
     if max_batches is None:
         max_batches = config.DEFAULT_EVALUATION_STEPS
-    if not getattr(evaluate, '_figures_noted', False):
-        evaluate._figures_noted = True
-        print('promonet_tpu_torch: validation figures need plot/, which is '
-              'not ported; none are logged', file=sys.stderr)
+    figures = _can_draw(state)
     generator = state.generator
     device = state.trainable[state.names[0]].device
     with torch.no_grad():
         generator.load_state_dict(state.effective())
     pitch_model, ppg_model = extractors
     metrics = Metrics(include_wer=False, config=config)
-    mel_total, count, audio_logs = 0., 0, {}
+    mel_total, count, audio_logs, figure_logs = 0., 0, {}, {}
     hopsize = config.HOPSIZE
     for i, batch in enumerate(valid_loader):
         if i >= max_batches:
             break
+        pause.heartbeat(config)
         length = int(batch['lengths'][0])
         batch = to_device(batch, device)
         with torch.inference_mode():
@@ -617,6 +794,11 @@ def evaluate(directory, step, state, valid_loader, extractors,
         if i < config.PLOT_EXAMPLES:
             stem = batch['stems'][0].replace('/', '-')
             audio_logs[f'audio/{stem}'] = waveform.cpu().numpy()
+            if figures:
+                figure = _prosody_figure(state, stem, waveform, predicted,
+                                         batch, length)
+                if figure is not None:
+                    figure_logs[f'prosody/{stem}'] = figure
     if not count:
         return
     scalars = {'validation/mels': mel_total / count}
@@ -628,4 +810,36 @@ def evaluate(directory, step, state, valid_loader, extractors,
             scalars[f'validation/{name}'] = value
     log.update(
         directory, step, scalars=scalars, audio=audio_logs,
-        sample_rate=config.SAMPLE_RATE)
+        sample_rate=config.SAMPLE_RATE, figures=figure_logs)
+
+
+def _can_draw(state):
+    """Whether matplotlib imports; where it does not, say so once per run"""
+    import importlib.util
+    if importlib.util.find_spec('matplotlib') is not None:
+        return True
+    if 'no matplotlib' not in state.notes:
+        state.notes.add('no matplotlib')
+        print('promonet_tpu_torch: matplotlib is not installed; validation '
+              'draws no prosody figures', file=sys.stderr)
+    return False
+
+
+def _prosody_figure(state, stem, waveform, predicted, batch, length):
+    """The prosody figure of one validation item, or None when drawing it
+    raised (reported once per run)"""
+    try:
+        return plot.from_features(
+            audio=waveform, loudness=predicted[0], pitch=predicted[1],
+            periodicity=predicted[2], ppg=predicted[3],
+            target_pitch=batch['pitch'][0, :length],
+            target_periodicity=batch['periodicity'][0, :length],
+            target_loudness=batch['loudness'][0, :, :length],
+            config=state.config)
+    except Exception as error:
+        if 'figure failed' not in state.notes:
+            state.notes.add('figure failed')
+            print(f'prosody figure for {stem} failed (suppressing further '
+                  f'reports): {error!r}', file=sys.stderr)
+            traceback.print_exc()
+        return None

@@ -1,1 +1,1 @@
-from . import audio, checkpoint, log, timer
+from . import audio, checkpoint, log, notify, pause, timer

@@ -2,8 +2,9 @@
 
 Every call appends the step's scalars to `<directory>/metrics.jsonl`, one
 JSON object per line; where `torch.utils.tensorboard` imports (it needs
-the `tensorboard` package), scalars and audio also go to TensorBoard
-event files in the same directory.
+the `tensorboard` package), scalars, audio and figures also go to
+TensorBoard event files in the same directory. Figures are closed in
+either case.
 """
 import json
 import time
@@ -23,8 +24,10 @@ def _tensorboard_writer(directory):
     return _writers[key]
 
 
-def update(directory, step, scalars=None, audio=None, sample_rate=None):
-    """Log a step's scalars ({name: number}) and audio ({name: samples})"""
+def update(directory, step, scalars=None, audio=None, sample_rate=None,
+           figures=None):
+    """Log a step's scalars ({name: number}), audio ({name: samples}) and
+    figures ({name: matplotlib Figure})"""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     writer = _tensorboard_writer(directory)
@@ -40,4 +43,10 @@ def update(directory, step, scalars=None, audio=None, sample_rate=None):
         for name, waveform in (audio or {}).items():
             writer.add_audio(
                 name, waveform.reshape(-1, 1), int(step), sample_rate)
+    for name, figure in (figures or {}).items():
+        if writer is not None:
+            writer.add_figure(name, figure, int(step), close=False)
+        import matplotlib.pyplot as plt
+        plt.close(figure)
+    if writer is not None:
         writer.flush()

@@ -3,8 +3,11 @@ on the paths that call them: zero-shot batches (K1 at B = 8 with x-vector
 speakers), the three CLIs as processes of their own, the registered
 residual-block operator inside an exported program, CARGAN, FARGAN's
 training step (no K1; the card against the CPU with the same noise),
-`ops.viterbi.from_probabilities` (K2) and one training step of each
-feature extractor (the card against the CPU).
+`ops.viterbi.from_probabilities` (K2), one training step of each
+feature extractor (the card against the CPU), the resident corpus'
+gather and draws on the card against the CPU, a resident training step
+(no K1), the pause's drain (the card idle before the acknowledgement),
+and one NCCL rank's step against the same step without the group.
 
 These need an NVIDIA GPU and `nvcc`; elsewhere they skip. This file
 imports neither JAX nor the JAX package, so it also runs where only
@@ -958,3 +961,140 @@ def test_extractor_step_on_the_card_matches_the_cpu(device, name):
         assert float(error.max()) <= 2 * rate + 1e-4 * scale, key
         close.append((error <= 1e-4 * scale).flatten())
     assert float(torch.cat(close).float().mean()) >= .99
+
+
+###############################################################################
+# Resident data, the pause, one rank under NCCL
+###############################################################################
+
+
+def _packed(config, stems=6, seed=0):
+    """A packed corpus (`data.resident.pack`'s arrays) of random values"""
+    rng = np.random.default_rng(seed)
+    frames = 3 * config.CHUNK_SIZE // config.HOPSIZE
+    lengths = rng.integers(
+        config.CHUNK_SIZE // config.HOPSIZE, frames + 1, stems).astype(
+            np.int32)
+    return {
+        'audio': rng.integers(
+            -2 ** 15, 2 ** 15, (stems, frames * config.HOPSIZE)).astype(
+                np.int16),
+        'loudness': rng.uniform(-80, 0, (stems, 8, frames)).astype(
+            np.float16),
+        'pitch': rng.uniform(80, 300, (stems, frames)).astype(np.float16),
+        'periodicity': rng.random((stems, frames)).astype(np.float16),
+        'ppg': rng.random((stems, config.PPG_CHANNELS, frames)).astype(
+            np.float16),
+        'lengths': lengths,
+        'speakers': np.arange(stems, dtype=np.int32),
+        'spectral_balance_ratios': np.ones(stems, np.float32),
+        'loudness_ratios': np.ones(stems, np.float32)}
+
+
+def test_resident_crops_and_sample_on_the_card_match_the_cpu(device):
+    """The gather on the card equals the CPU's for the same rows and
+    starts; the draws on the card lie within their stems"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.data import resident
+    config = port.config.load()
+    packed = _packed(config)
+    data = resident.to_device(packed, device)
+    cpu = resident.to_device(packed, 'cpu')
+    frames = config.CHUNK_SIZE // config.HOPSIZE
+    generator = torch.Generator(device=device).manual_seed(0)
+    rows, starts = resident.draw(data, generator, 4096, frames)
+    assert rows.device.type == 'cuda'
+    assert bool(((starts >= 0) &
+                 (starts <= data['lengths'][rows] - frames)).all())
+    card = resident.crops(data, rows[:64], starts[:64], frames)
+    plain = resident.crops(cpu, rows[:64].cpu(), starts[:64].cpu(), frames)
+    for name, value in plain.items():
+        assert torch.equal(card[name].cpu(), value), name
+    batch = resident.sample(data, generator, 8, config)
+    assert batch['audio'].shape == (8, 1, config.CHUNK_SIZE)
+    assert batch['audio'].device.type == 'cuda'
+
+
+def test_resident_step_launches_no_block_kernel(device):
+    """A narrow training step on a resident batch drawn on the card: no
+    K1 launch, finite losses"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.data import resident
+    from promonet_tpu_torch.train import core
+    config = port.config.load().replace(
+        HIFIGAN_UPSAMPLE_INITIAL_SIZE=32, CHUNK_SIZE=2048, BATCH_SIZE=2)
+    data = resident.to_device(_packed(config), device)
+    batch = resident.sample(
+        data, torch.Generator(device=device).manual_seed(1), 2, config)
+    batch['spectrograms'] = port.preprocess.spectrogram.from_audio(
+        batch['audio'], config)
+    state = core.create_state(config, device)
+    launches = resblock.fused_block.launches
+    metrics = core.train_step(state, batch)
+    assert resblock.fused_block.launches == launches
+    assert all(bool(torch.isfinite(value)) for value in metrics.values())
+
+
+def test_maybe_pause_synchronizes_the_card(device, tmp_path):
+    """The trainer's drain, `pause.synchronize`, leaves the card idle
+    before the checkpoint and the acknowledgement"""
+    import os
+    import threading
+    import time
+
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.utils import pause
+    config = port.config.load().replace(RUNS_DIR=tmp_path / 'runs')
+    pause.register_trainer(config)
+    try:
+        x = torch.randn(4096, 4096, device=device)
+        for _ in range(50):
+            x = x @ x
+            x = x / x.norm()
+        idle = []
+        pause.pause_file(config).write_text(str(os.getpid()))
+        thread = threading.Thread(target=pause.maybe_pause, kwargs=dict(
+            drain=pause.synchronize(device),
+            on_pause=lambda: idle.append(torch.cuda.current_stream(
+                device).query()),
+            poll_seconds=0.02, config=config))
+        thread.start()
+        deadline = time.time() + 60
+        while not pause.ack_file(config).exists() and time.time() < deadline:
+            time.sleep(0.01)
+        assert idle == [True]
+        pause.pause_file(config).unlink()
+        thread.join(60)
+        assert not thread.is_alive()
+    finally:
+        pause.unregister_trainer(config)
+
+
+def test_one_nccl_rank_steps_as_the_card_alone(device, tmp_path):
+    """A process group of one rank under NCCL: each step issues the two
+    gradient all-reduces, and its losses are those of the step without
+    the group (float32, within 1e-5 relative)"""
+    import torch.distributed as dist
+
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.train import core
+    config = port.config.load().replace(
+        HIFIGAN_UPSAMPLE_INITIAL_SIZE=32, CHUNK_SIZE=2048, BATCH_SIZE=2,
+        PRECISION='float32')
+    batch = core.to_device(_train_batch(config, 2), device)
+    alone = core.create_state(config, device)
+    expected = core.train_step(alone, batch)
+    dist.init_process_group(
+        'nccl', init_method=f'file://{tmp_path / "store"}', rank=0,
+        world_size=1)
+    try:
+        state = core.create_state(config, device)
+        state.mesh = port.parallel.create_mesh(config=config, device=device)
+        launches = port.parallel.all_reduce_mean.launches
+        metrics = core.train_step(state, batch)
+        assert port.parallel.all_reduce_mean.launches == launches + 2
+    finally:
+        dist.destroy_process_group()
+    for name, value in expected.items():
+        assert abs(float(metrics[name]) - float(value)) <= \
+            1e-5 * abs(float(value)), name
