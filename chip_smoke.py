@@ -281,6 +281,34 @@ Phases, each printed as one JSON line with the seconds since the start
    against the edited contour, reported. Where the release generator is
    not in the checkout, its line says "release_generator": "absent" and
    the extractors' part still runs and gates.
+22c. dataset pipeline: `run.sh`'s dataset chain through the port's
+   command lines, each in a process of its own with `--config` (every
+   directory under a temporary directory in build/, an empty
+   CHECKPOINTS_DIR, so the extractors are the shipped ones, STEPS 2; else
+   the default configuration at full width) and `--gpu 0`, on trees made
+   from a seed in the published datasets' layouts (PIPELINE_TREES): a
+   LibriTTS tree at 24 kHz (the ten held-out speakers of the recomputed
+   partition and 14 others, 12 utterances each: 288 wavs, 12.6 minutes),
+   a DAPS tree at 44.1 kHz (20 speakers, one quiet) and a VCTK tree at 48
+   kHz (4 speakers x 3 utterances x 2 microphones, one utterance without
+   a transcript). `data.download` (DAPS, LibriTTS, VCTK): the cache
+   layout, speakers.json in order of first appearance, the quiet
+   speaker's takes at a 0.35 peak, 22 of VCTK's 24 takes kept with
+   correspondence.json and every `-100.wav` at SAMPLE_RATE;
+   `data.augment`, `data.preprocess` (one K2 decode per cached wav),
+   `partition` (20 test stems, all of the held-out speakers, at least a
+   batch to train on, no stem in two splits), `train` (a generator
+   checkpoint at step 2, finite validation losses, 12 K1 and 1 K2 per
+   validation item) and `evaluate` (results.json with the 11 conditions
+   and finite loudness, periodicity and PPG) over LibriTTS. Each step's
+   line: its wall seconds (the process start included), the wavs and
+   seconds of audio it handled, its process's launch counts and the
+   card's name and power limit. In this process: the preprocess CLI's
+   files of three wavs against `preprocess.from_file` with the same
+   shipped extractors (pitch and periodicity equal, the other features
+   within 1e-5 of their scale, 1 K2 a call), and one test stem edited
+   with the trained checkpoint (12 K1, 1 K2, finite audio of the edited
+   length).
 23. time and kernels: K1 per (T, C, k) with its time, TFLOP/s, CUDA
    launches per Block, the time at each number of row tiles per thread
    block, the plain chain's and cuDNN's times and the bound; K2 with the
@@ -291,8 +319,9 @@ Phases, each printed as one JSON line with the seconds since the start
    the reading behind the split's cost per destination and the cycles of
    each section of a frame. Then per
    kernel its
-   launches (the main path's; K2's other call sites, phases 21, 22 and
-   22b, and K1's in phase 22b, apart under `launches_by_call_site`), error (for the two decodes the
+   launches (the main path's; K2's other call sites, phases 21, 22, 22b
+   and 22c, and K1's in phases 22b and 22c, apart under
+   `launches_by_call_site`), error (for the two decodes the
    largest difference in state index seen in this run's checks), time,
    plain and library times and
    the card's bound, the seconds of each phase, then the card's name and
@@ -418,10 +447,11 @@ def emit(**record):
     print(json.dumps(dict(record, elapsed_s=now)), flush=True)
 
 
-def harmonic_audio(seconds, sample_rate):
-    """The verification signal: 4 harmonics of a vibrato around 180 Hz"""
+def harmonic_audio(seconds, sample_rate, base=180.):
+    """The verification signal: 4 harmonics of a vibrato around `base` Hz,
+    a third of it deep"""
     t = np.arange(int(seconds * sample_rate)) / sample_rate
-    pitch = 180. + 60. * np.sin(2 * np.pi * 1.5 * t)
+    pitch = base + base / 3 * np.sin(2 * np.pi * 1.5 * t)
     phase = 2 * np.pi * np.cumsum(pitch) / sample_rate
     audio = sum((0.5 ** k) * np.sin(k * phase) for k in range(1, 5))
     return (0.5 * audio / np.abs(audio).max()).astype(np.float32)[None]
@@ -3380,6 +3410,405 @@ def shipped_weights_path(torch, port, device, audio):
     return launches['resblock'], launches['viterbi']
 
 
+# Phase 22c: run.sh's dataset chain through the port's command lines, on
+# trees laid out as the published datasets are (under DATA_DIR, as a user
+# extracts them), made from a seed. LibriTTS, 24 kHz, is the chain's
+# corpus: the ten held-out speakers of the recomputed partition and 14
+# others, each with `long` utterances inside the test window of 4 to 10 s
+# and `short` ones of 1.5 to 3 s. DAPS (44.1 kHz, one speaker's takes
+# quiet enough to be gained up) and VCTK (48 kHz, both microphones, one
+# utterance without a transcript) are formatted only.
+PIPELINE_TREES = dict(
+    libritts=dict(rate=24000, others=14, long=2, long_seconds=4.5,
+                  short=10, short_seconds=(1.5, 3.)),
+    daps=dict(rate=44100, scripts=2, seconds=1., quiet_peak=0.1),
+    vctk=dict(rate=48000, speakers=4, utterances=3, seconds=1.))
+# Settings of the chain's configuration file besides its directories: the
+# default configuration at full width, cut to two training steps
+PIPELINE_SETTINGS = {'STEPS': 2}
+# (stage, arguments, seconds its process may take), in run.sh's order
+PIPELINE_STEPS = (
+    ('data.download', ['--datasets', 'daps', 'libritts', 'vctk'], 180),
+    ('data.augment', ['--datasets', 'libritts'], 180),
+    ('data.preprocess', ['--datasets', 'libritts'], 420),
+    ('partition', ['--datasets', 'libritts'], 90),
+    ('train', ['--dataset', 'libritts'], 420),
+    ('evaluate', ['--datasets', 'libritts'], 420))
+
+
+def pipeline_trees(port, data, rng):
+    """Write the LibriTTS, DAPS and VCTK trees under `data`; returns the
+    LibriTTS speaker IDs and the quiet DAPS speaker"""
+    save = port.utils.audio.save
+
+    def utterance(path, seconds, rate, base, peak=0.5):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        save(path, harmonic_audio(seconds, rate, base) * (peak / 0.5), rate)
+
+    tree = PIPELINE_TREES['libritts']
+    held_out = port.partition.core.ADAPTATION_SPEAKERS['libritts']
+    others = [str(speaker) for speaker in rng.choice(
+        [s for s in range(14, 9000) if str(s) not in held_out],
+        tree['others'], replace=False)]
+    root = data / 'libritts' / 'train-clean-100'
+    for speaker in held_out + others:
+        chapter = str(rng.integers(1000, 99999))
+        base = rng.uniform(100., 250.)
+        seconds = [tree['long_seconds']] * tree['long'] + list(rng.uniform(
+            *tree['short_seconds'], tree['short']))
+        for index, length in enumerate(seconds):
+            name = f'{speaker}_{chapter}_{index + 1:06d}_000000'
+            folder = root / speaker / chapter
+            utterance(folder / f'{name}.wav', length, tree['rate'], base)
+            (folder / f'{name}.normalized.txt').write_text(
+                f'utterance {index + 1} of reader {speaker}')
+
+    tree = PIPELINE_TREES['daps']
+    speakers = [f'{sex}{k}' for sex in 'fm' for k in range(1, 11)]
+    quiet = speakers[rng.integers(len(speakers))]
+    for speaker in speakers:
+        base = rng.uniform(100., 250.)
+        for script in range(1, tree['scripts'] + 1):
+            name = f'{speaker}_script{script}_clean'
+            utterance(
+                data / 'daps' / 'clean' / f'{name}.wav', tree['seconds'],
+                tree['rate'], base,
+                tree['quiet_peak'] if speaker == quiet else 0.5)
+            (data / 'daps' / 'clean' / f'{name}.txt').write_text(
+                f'script {script} read by {speaker}')
+
+    tree = PIPELINE_TREES['vctk']
+    for index in range(tree['speakers']):
+        speaker = f'p{225 + index}'
+        base = rng.uniform(100., 250.)
+        for number in range(1, tree['utterances'] + 1):
+            stem = f'{speaker}_{number:03d}'
+            for mic in (1, 2):
+                utterance(
+                    data / 'vctk' / 'wav48_silence_trimmed' / speaker /
+                    f'{stem}_mic{mic}.wav', tree['seconds'], tree['rate'],
+                    base)
+            # The last speaker's second utterance has no transcript
+            if (index, number) != (tree['speakers'] - 1, 2):
+                text = data / 'vctk' / 'txt' / speaker / f'{stem}.txt'
+                text.parent.mkdir(parents=True, exist_ok=True)
+                text.write_text(f'utterance {number} of {speaker}')
+    return held_out + others, quiet
+
+
+def wav_seconds(port, files):
+    """(count, seconds) of wav files, from their headers"""
+    files = list(files)
+    return len(files), sum(map(port.utils.audio.duration, files))
+
+
+def dataset_pipeline_path(torch, port, device, smi, tf32_defaults):
+    """Phase 22c: `run.sh`'s dataset chain (download, augment, preprocess,
+    partition, train, evaluate), each step a command line of the port in a
+    process of its own on the card, from trees in the published datasets'
+    layouts to a trained checkpoint's evaluation; each step's output
+    checked, the preprocess CLI's files against in-process calls with the
+    same shipped extractors (1 K2 each), and one edit from the trained
+    checkpoint (12 K1, 1 K2). Returns the K1 and K2 launches of this
+    process's calls: the three checks and the edit"""
+    from promonet_tpu_torch.ops import resblock, viterbi
+    device = torch.device(device)
+    gpu = str(device.index or 0) if device.type == 'cuda' else '-1'
+    (ROOT / 'build').mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as directory:
+        directory = Path(directory)
+        data = directory / 'datasets'
+        start = time.perf_counter()
+        speakers, quiet = pipeline_trees(
+            port, data, np.random.default_rng(15))
+        emit(phase='dataset_pipeline', trees=PIPELINE_TREES,
+             trees_seconds=time.perf_counter() - start)
+        # An empty CHECKPOINTS_DIR: the extractors are the shipped ones
+        (directory / 'checkpoints').mkdir()
+        dirs = dict(
+            DATA_DIR=data, CACHE_DIR=directory / 'cache',
+            PARTITIONS_DIR=directory / 'partitions',
+            AUGMENT_DIR=directory / 'augmentations',
+            RUNS_DIR=directory / 'runs', EVAL_DIR=directory / 'eval',
+            RESULTS_DIR=directory / 'results',
+            CHECKPOINTS_DIR=directory / 'checkpoints')
+        config_file = directory / 'dataset_pipeline.py'
+        config_file.write_text('\n'.join(
+            ["MODULE = 'promonet_tpu_torch'"] +
+            [f'{name} = {str(value)!r}' for name, value in dirs.items()] +
+            [f'{name} = {value!r}'
+             for name, value in PIPELINE_SETTINGS.items()]) + '\n')
+        config = port.config.load(config_file)
+        cache = config.CACHE_DIR / 'libritts'
+        checkpoint = config.RUNS_DIR / config.CONFIG / \
+            f'generator-{config.STEPS:08d}.pt'
+        steps = iter(enumerate(PIPELINE_STEPS, 1))
+        no_launch = {'resblock': 0, 'viterbi': 0, 'viterbi_logfreq': 0}
+
+        def run(*extra):
+            """The next step's command line in a process of its own; its
+            line so far: wall seconds (the process start included), the
+            import and main seconds and the process's launch counts"""
+            number, (stage, arguments, timeout) = next(steps)
+            arguments = [*arguments, *extra, '--config', str(config_file),
+                         '--gpu', gpu]
+            start = time.perf_counter()
+            result = subprocess.run(
+                [sys.executable, '-c', CLI_RUNNER, stage, *arguments],
+                cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+            wall = time.perf_counter() - start
+            if result.returncode:
+                raise AssertionError(
+                    f'python -m promonet_tpu_torch.{stage} exited '
+                    f'{result.returncode}:\n{result.stderr[-4000:]}')
+            return dict(
+                phase='dataset_pipeline', step=number, command=' '.join([
+                    'python -m', f'promonet_tpu_torch.{stage}', *arguments
+                ]).replace(str(directory), '<build>'),
+                wall_s=wall, **json.loads(result.stdout.splitlines()[-1]),
+                nvidia_smi=smi)
+
+        # 1. Format the three trees into the cache
+        record = run()
+        record['wavs'], record['audio_seconds'] = wav_seconds(
+            port, data.rglob('*.wav'))
+
+        def files(folder):
+            return {
+                'speakers': len([d for d in folder.iterdir() if d.is_dir()]),
+                '-100.wav': len(list(folder.glob('*/*-100.wav'))),
+                'own rate .wav': len([
+                    wav for wav in folder.glob('*/*.wav')
+                    if not wav.stem.endswith('-100')]),
+                '.txt': len(list(folder.glob('*/*.txt')))}
+
+        layout = {name: files(config.CACHE_DIR / name)
+                  for name in ('libritts', 'daps', 'vctk')}
+        tree = PIPELINE_TREES['libritts']
+        utterances = len(speakers) * (tree['long'] + tree['short'])
+        # Speaker indices in order of first appearance over the sorted
+        # paths ('1355' sorts before '196')
+        order = list(dict.fromkeys(
+            wav.name.split('_')[0]
+            for wav in sorted((data / 'libritts').rglob('*.wav'))))
+        speaker_map = json.loads((cache / 'speakers.json').read_text())
+        daps_order = list(dict.fromkeys(
+            wav.name.split('_')[0]
+            for wav in sorted(path.resolve()
+                              for path in (data / 'daps').rglob('*.wav'))))
+        quiet_dir = config.CACHE_DIR / 'daps' / \
+            f'{daps_order.index(quiet):04d}'
+        peaks = [float(np.abs(port.utils.audio.load(wav)[0]).max())
+                 for wav in sorted(quiet_dir.glob('*.wav'))]
+        vctk = config.CACHE_DIR / 'vctk'
+        correspondence = json.loads(
+            (vctk / 'correspondence.json').read_text())
+        vctk_rates = {port.utils.audio.load(wav)[1]
+                      for wav in vctk.glob('*/*-100.wav')}
+        record.update(
+            layout=layout, speakers_json_in_order=speaker_map == {
+                speaker: [order.index(speaker), tree['long'] + tree['short']]
+                for speaker in order},
+            speakers_mapped=len(speaker_map), quiet_speaker=quiet,
+            quiet_peaks=peaks, vctk_takes=len(correspondence),
+            vctk_rates=sorted(vctk_rates))
+        emit(**record)
+        vctk_tree = PIPELINE_TREES['vctk']
+        takes = vctk_tree['speakers'] * vctk_tree['utterances'] * 2
+        if layout['libritts'] != {
+                'speakers': len(speakers), '-100.wav': utterances,
+                'own rate .wav': utterances, '.txt': utterances} or \
+                not record['speakers_json_in_order'] or \
+                len(speaker_map) != len(speakers) or \
+                layout['daps']['speakers'] != 20 or \
+                not all(abs(peak - 0.35) <= 0.01 for peak in peaks) or \
+                len(peaks) != 2 * PIPELINE_TREES['daps']['scripts'] or \
+                layout['vctk']['-100.wav'] != takes - 2 or \
+                len(correspondence) != takes - 2 or \
+                not {'p225_001_mic1', 'p225_001_mic2'} <= set(
+                    correspondence.values()) or \
+                vctk_rates != {config.SAMPLE_RATE} or \
+                record['launches'] != no_launch:
+            raise AssertionError('the formatted caches are wrong')
+
+        # 2. Augment: a pitch-shifted and a loudness-scaled copy of each
+        record = run()
+        copies = sorted(
+            wav for wav in cache.glob('*/*.wav') if '-100-' in wav.stem)
+        record['wavs'], record['audio_seconds'] = wav_seconds(port, copies)
+        emit(**record)
+        if record['wavs'] != 2 * utterances or \
+                record['launches'] != no_launch:
+            raise AssertionError('the augmentation is wrong')
+
+        # 3. Preprocess every cached wav on the card: one K2 decode each
+        record = run()
+        wavs = sorted(cache.glob('*/*.wav'))
+        record['wavs'], record['audio_seconds'] = wav_seconds(port, wavs)
+        infix = '-viterbi' if config.VITERBI_DECODE_PITCH else ''
+        suffixes = {
+            'loudness': '-loudness', 'pitch': f'{infix}-pitch',
+            'periodicity': f'{infix}-periodicity',
+            'spectrogram': '-spectrogram', 'ppg': '-ppg'}
+        features = port.data.preprocess.core.FEATURES
+        missing = [
+            f'{wav.stem}{suffixes[name]}.npy' for wav in wavs
+            for name in features
+            if not (wav.parent / f'{wav.stem}{suffixes[name]}.npy').exists()]
+        record.update(missing_feature_files=len(missing))
+        emit(**record)
+        if missing or record['launches'] != dict(no_launch, viterbi=len(
+                wavs)):
+            raise AssertionError(f'the preprocessing is wrong: {missing[:4]}')
+
+        # The CLI's files of three wavs (a long and a short original and a
+        # copy) against the same features from in-process calls with the
+        # same shipped extractors, each one K2 decode, with PyTorch's
+        # default TF32 settings as the CLI process had them
+        pitch_model = port.load.pitch_model(config=config, device=device)
+        ppg_model = port.load.ppg_model(config=config, device=device)
+        chosen = [cache / '0000' / '000000-100.wav',
+                  cache / '0000' / f'{tree["long"]:06d}-100.wav', copies[0]]
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32_defaults
+        differences, k2_launches = {}, []
+        try:
+            for wav in chosen:
+                reset_launch_counts(resblock, viterbi)
+                with torch.no_grad():
+                    values = port.preprocess.from_file(
+                        wav, pitch_model, ppg_model, features,
+                        loudness_bands=None, config=config, device=device)
+                k2_launches.append(launch_counts(resblock, viterbi))
+                for name, value in zip(features, values):
+                    file = f'{wav.stem}{suffixes[name]}.npy'
+                    ours = value.cpu().numpy()
+                    theirs = np.load(wav.parent / file)
+                    differences[f'{wav.parent.name}/{file}'] = (
+                        float(np.abs(ours - theirs).max())
+                        if ours.shape == theirs.shape else float('inf'),
+                        max(1., float(np.abs(ours).max())))
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        decoded_equal = all(
+            difference == 0 for name, (difference, _) in differences.items()
+            if 'pitch' in name or 'periodicity' in name)
+        within = all(difference <= 1e-5 * scale
+                     for difference, scale in differences.values())
+        emit(phase='dataset_pipeline', check='preprocess_against_in_process',
+             wavs=[f'{wav.parent.name}/{wav.name}' for wav in chosen],
+             max_abs_difference={
+                 name: difference
+                 for name, (difference, _) in differences.items()},
+             decoded_equal=decoded_equal, within_tolerance=within,
+             launches=k2_launches)
+        if not decoded_equal or not within or any(
+                counts != dict(no_launch, viterbi=1)
+                for counts in k2_launches):
+            raise AssertionError('the preprocess CLI and the in-process '
+                                 'calls disagree')
+
+        # 4. Partition, recomputed through speakers.json
+        record = run()
+        partition = port.load.partition('libritts', False, config)
+        stems = [stem for split in partition.values() for stem in split]
+        record['wavs'], record['audio_seconds'] = wav_seconds(
+            port, (cache / f'{stem}.wav' for stem in stems))
+        held_out = {
+            f'{speaker_map[speaker][0]:04d}'
+            for speaker in port.partition.core.ADAPTATION_SPEAKERS[
+                'libritts']}
+        record.update(splits={
+            name: len(split) for name, split in partition.items()})
+        emit(**record)
+        if sorted(partition) != ['test', 'train', 'valid'] or \
+                len(partition['test']) != tree['long'] * len(held_out) or \
+                {stem.split('/')[0] for stem in partition['test']} != \
+                held_out or len(stems) != len(set(stems)) or \
+                len(partition['train']) < config.BATCH_SIZE or \
+                record['launches'] != no_launch:
+            raise AssertionError(f'the partition is wrong: {record["splits"]}')
+
+        # 5. Train: STEPS steps and the validation at step 0 (one
+        # generator call of 12 K1 and one K2 decode per item)
+        record = run()
+        train_data = port.data.Dataset('libritts', 'train', config)
+        record['wavs'], record['audio_seconds'] = wav_seconds(
+            port, (cache / f'{stem}.wav' for stem in train_data.stems))
+        record['trained_audio_seconds'] = \
+            config.STEPS * config.BATCH_SIZE * config.CHUNK_SIZE / \
+            config.SAMPLE_RATE
+        metrics = [json.loads(line) for line in (
+            checkpoint.parent / 'metrics.jsonl').read_text().splitlines()]
+        validation = {
+            name: value for line in metrics for name, value in line.items()
+            if name.startswith('validation/')}
+        items = min(config.DEFAULT_EVALUATION_STEPS, len(partition['valid']))
+        record.update(checkpoint=checkpoint.name, validation=validation)
+        emit(**record)
+        if not checkpoint.exists() or not validation or not all(
+                np.isfinite(value) for value in validation.values()) or \
+                record['launches'] != dict(
+                    no_launch, resblock=12 * items, viterbi=items):
+            raise AssertionError('the training run is wrong')
+
+        # 6. Evaluate the step-STEPS generator over the test partition
+        record = run('--checkpoint', str(checkpoint))
+        test = partition['test']
+        record['wavs'], record['audio_seconds'] = wav_seconds(
+            port, (cache / f'{stem}.wav' for stem in test))
+        results = json.loads((
+            config.RESULTS_DIR / config.CONFIG / 'libritts' / 'results.json'
+        ).read_text())
+        objective = results['objective']
+        conditions = 1 + 5 * len(config.EVALUATION_RATIOS)
+        finite = all(
+            np.isfinite(values[name]).all() for values in objective.values()
+            for name in ('periodicity', 'ppg')) and all(
+            np.isfinite(value) for values in objective.values()
+            for value in values['loudness'].values())
+        launches = record['launches']
+        record.update(
+            jobs=len(test) * conditions, conditions=sorted(objective),
+            finite=finite, objective_reconstructed=objective['reconstructed'],
+            benchmark=results['benchmark'])
+        emit(**record)
+        if len(objective) != conditions or not finite or \
+                launches['viterbi'] < record['jobs'] or \
+                not launches['resblock'] or launches['resblock'] % 12 or \
+                launches['viterbi_logfreq']:
+            raise AssertionError('the evaluation is wrong')
+
+        # One test stem edited with the trained generator in this process
+        stem = test[0]
+        generator = port.load.generator(checkpoint, config, device)
+        speaker = port.data.Dataset('libritts', 'test', config).speaker_index[
+            stem.split('/')[0]]
+        audio = port.load.audio(cache / f'{stem}.wav', config)
+        reset_launch_counts(resblock, viterbi)
+        with torch.no_grad():
+            features = port.preprocess.from_audio(
+                audio, pitch_model, ppg_model, loudness_bands=None,
+                config=config, device=device)
+            edited = port.edit.from_features(*features, config=config, **EDIT)
+            output = port.synthesize.from_features(
+                *edited, generator=generator, speaker=speaker, device=device)
+        launches = launch_counts(resblock, viterbi)
+        samples = edited[1].shape[-1] * config.HOPSIZE
+        finite = bool(np.isfinite(output).all())
+        emit(phase='dataset_pipeline', check='edit_from_trained_checkpoint',
+             stem=stem, speaker=speaker, launches=launches,
+             samples=output.shape[-1], finite=finite)
+        if launches != dict(no_launch, resblock=12, viterbi=1) or \
+                not finite or output.shape != (1, samples):
+            raise AssertionError('the trained checkpoint\'s edit is wrong')
+    return {'resblock': launches['resblock'],
+            'viterbi': launches['viterbi'] + len(k2_launches)}
+
+
 def main():
     try:
         import torch
@@ -3879,6 +4308,11 @@ def main():
     k1_call_sites = {'main_path': launches['resblock']}
     k1_call_sites['shipped_weights'], k2_call_sites['shipped_weights'] = \
         shipped_weights_path(torch, port, device, audio)
+
+    # 22c. run.sh's dataset chain through the port's command lines
+    pipeline = dataset_pipeline_path(torch, port, device, smi, tf32_defaults)
+    k1_call_sites['dataset_pipeline'] = pipeline['resblock']
+    k2_call_sites['dataset_pipeline'] = pipeline['viterbi']
 
     # 23. Kernel times at the main path's shapes
     k1 = dict(ms=0., plain_ms=0., library_ms=0., bound_ms=0.)

@@ -22,8 +22,9 @@ training and speaker adaptation (`train`, `models.Discriminator`,
 promonet_tpu_torch.{train,adapt}`; FARGAN's training route), the WORLD
 baseline (`baseline.world`) and its evaluation, packed features and the
 exported packed-inference program (`models.export`, `data.pack`),
-CARGAN (`models.cargan`), the dataset command lines (`python -m
-promonet_tpu_torch.{partition,data.preprocess,data.pack,models.export}`),
+CARGAN (`models.cargan`), dataset formatting (`data.download`), the
+dataset command lines (`python -m promonet_tpu_torch.{data.download,
+partition,data.preprocess,data.pack,models.export}`),
 device-resident training data with several steps a dispatch
 (`data.resident`), data-parallel training over `torch.distributed`
 (`parallel`, `torchrun -m promonet_tpu_torch.train`), the trainer's
@@ -61,3 +62,6 @@ from .train import loss, train
 from . import adapt
 from . import plot
 from . import utils
+
+# The JAX package's alias of `models` (the reference's `promonet.model`)
+model = models

@@ -163,6 +163,10 @@ CHECKPOINTS_DIR = Path(__file__).parent.parent.parent / 'checkpoints_torch'
 # RUNS_DIR / CONFIG (`load.generator`). Not the JAX package's `runs/`.
 RUNS_DIR = Path(__file__).parent.parent.parent / 'runs_torch'
 
+# Extracted datasets as published, <dataset>/..., which `data.download`
+# formats into CACHE_DIR (the JAX package's location; read only)
+DATA_DIR = _data / 'datasets'
+
 # Preprocessed datasets: <dataset>/<speaker>/<utterance>-100.wav and its
 # feature files (the JAX package's layout and location, so a corpus made
 # by either package serves both)

@@ -2,7 +2,8 @@
 # imports it from here
 from .collate import bucket_frames, collate
 from . import (
-    augment, dataset, native, pack, preprocess, resident, synthetic)
+    augment, dataset, download, native, pack, preprocess, resident,
+    synthetic)
 from .dataset import Dataset
 from .loader import Loader, loader
 from .sampler import Sampler

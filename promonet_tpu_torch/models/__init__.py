@@ -4,3 +4,4 @@ from .cargan import CARGAN
 from .discriminator import Discriminator
 from .generator import Generator, MelGenerator
 from .hifigan import HiFiGAN
+from .modules import get_padding

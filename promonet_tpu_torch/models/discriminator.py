@@ -19,6 +19,7 @@ pass (`torch.utils.checkpoint`), as `nn.remat` does in the JAX package.
 """
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -308,6 +309,22 @@ class DiscriminatorS(nn.Module):
 ###############################################################################
 # FARGAN discriminator
 ###############################################################################
+
+
+def gen_filterbank(n, sample_rate, keep_size=False):
+    """ERB-spaced smoothing filterbank, (n or n + 1, n + 1) float32: row i
+    weighs the n + 1 bins of 0 to sample_rate / 2 by their distance from
+    bin i in ERBs (B.C.J. Moore, An Introduction to the Psychology of
+    Hearing, 5th ed.), normalised to sum to one"""
+    in_freq = (np.arange(n + 1, dtype='float32') / n * sample_rate / 2)[None]
+    m = n + 1 if keep_size else n
+    out_freq = (np.arange(m, dtype='float32') / n * sample_rate / 2)[:, None]
+    erb = 24.7 + .108 * in_freq
+    delta = np.abs(in_freq - out_freq) / erb
+    center = (delta < .5).astype('float32')
+    response = -12 * center * delta ** 2 + (1 - center) * (3 - 12 * delta)
+    energy = 10. ** (response / 10.)
+    return torch.from_numpy(energy / energy.sum(axis=1, keepdims=True))
 
 
 def create_3x3_conv_plan(num_layers, f_stretch, f_down, t_stretch, t_down):

@@ -204,3 +204,8 @@ def same_padding(length, kernel_size, stride):
     out = -(-length // stride)
     total = max((out - 1) * stride + kernel_size - length, 0)
     return total // 2, total - total // 2
+
+
+def get_padding(kernel_size, dilation=1, stride=1):
+    """Padding that keeps a convolution's length ('same' at stride 1)"""
+    return int((kernel_size * dilation - dilation - stride + 1) / 2)

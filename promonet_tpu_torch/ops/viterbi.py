@@ -161,11 +161,16 @@ _BANDS = {}
 
 
 def banded(transition):
-    """The cached `Band` of a dense transition tensor (analysed once)"""
+    """The cached `Band` of a dense transition tensor (analysed once)
+
+    A tensor made under `torch.inference_mode` has no version counter to
+    tell a later write by, so its band is analysed anew on each call.
+    """
     if isinstance(transition, Band):
         return transition
     key = id(transition)
-    hit = _BANDS.get(key)
+    cached = not transition.is_inference()
+    hit = _BANDS.get(key) if cached else None
     if hit is not None and hit[0]() is transition \
             and hit[1] == transition._version:
         return hit[2]
@@ -175,9 +180,10 @@ def banded(transition):
             f'Viterbi kernel takes a square float32 transition; got '
             f'{transition.dtype} {tuple(transition.shape)}')
     band = Band(transition.detach())
-    _BANDS[key] = (
-        weakref.ref(transition, lambda _, key=key: _BANDS.pop(key, None)),
-        transition._version, band)
+    if cached:
+        _BANDS[key] = (
+            weakref.ref(transition, lambda _, key=key: _BANDS.pop(key, None)),
+            transition._version, band)
     return band
 
 

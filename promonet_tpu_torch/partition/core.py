@@ -149,13 +149,13 @@ def _dataset_specific(name, adapt, config):
     rng = np.random.default_rng(config.RANDOM_SEED)
 
     # VCTK: another microphone's recording of a test utterance must not
-    # land in another split
+    # land in another split. `data.download` keys correspondence.json by
+    # the cache stems, '-100' included; the JAX package appends '-100'
+    # once more, so that no stem matches and no take is excluded there.
     correspondence = None
     if name == 'vctk' and (cache / 'correspondence.json').exists():
         with open(cache / 'correspondence.json') as handle:
-            correspondence = {
-                f'{stem}-100': source
-                for stem, source in json.load(handle).items()}
+            correspondence = json.load(handle)
 
     def meets_length(stem):
         seconds = audio_module.duration(cache / f'{stem}.wav')

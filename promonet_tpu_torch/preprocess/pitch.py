@@ -156,14 +156,20 @@ def decode_constants(num_states, width, device):
     Built once per (states, width, device): on a CUDA device the
     transition comes analysed for the kernel (`viterbi.banded`), so a
     decode builds nothing on the host and copies nothing to the card.
+    They are built outside inference mode whatever the caller's mode: a
+    first decode under `torch.inference_mode` (a training run's
+    validation) would otherwise cache inference tensors for every later
+    caller.
     """
     device = torch.device(device)
-    transition = viterbi.triangular_transition(num_states, width).to(device)
-    if device.type == 'cuda':
-        transition = viterbi.banded(transition)
-    initial = torch.full(
-        (num_states,), -float(np.log(np.float32(num_states))),
-        dtype=torch.float32, device=device)
+    with torch.inference_mode(False):
+        transition = viterbi.triangular_transition(num_states, width).to(
+            device)
+        if device.type == 'cuda':
+            transition = viterbi.banded(transition)
+        initial = torch.full(
+            (num_states,), -float(np.log(np.float32(num_states))),
+            dtype=torch.float32, device=device)
     return transition, initial
 
 

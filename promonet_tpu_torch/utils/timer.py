@@ -5,7 +5,8 @@ totals in module globals; here they belong to a `Timer` that its caller
 creates (the evaluation makes one per run). PyTorch returns before the
 card finishes, so on a CUDA device a phase starts and ends with
 `torch.cuda.synchronize(device)`: each phase's wall time is then the
-card's work inside it, not the time to queue that work.
+card's work inside it, not the time to queue that work. `profile` traces
+a region for the profiler's viewers.
 """
 import contextlib
 import time
@@ -50,3 +51,20 @@ class Timer:
     def _synchronize(self):
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
+
+
+@contextlib.contextmanager
+def profile(directory):
+    """Trace the enclosed region with torch.profiler: the host's
+    operations and, where a card is present, its kernels, written as a
+    Chrome/Perfetto trace (`<host>_<pid>.<time>.pt.trace.json`) under
+    `directory`, which TensorBoard's profiler plugin and ui.perfetto.dev
+    read"""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                str(directory))):
+        yield

@@ -3,7 +3,8 @@ on the paths that call them: zero-shot batches (K1 at B = 8 with x-vector
 speakers), the three CLIs as processes of their own, the registered
 residual-block operator inside an exported program, CARGAN, FARGAN's
 training step (no K1; the card against the CPU with the same noise),
-`ops.viterbi.from_probabilities` (K2), one training step of each
+`ops.viterbi.from_probabilities` (K2), the pitch decode first made under
+`torch.inference_mode` (K2), one training step of each
 feature extractor (the card against the CPU), the resident corpus'
 gather and draws on the card against the CPU, a resident training step
 (no K1), the pause's drain (the card idle before the acknowledgement),
@@ -71,6 +72,23 @@ def test_viterbi_kernel_breaks_ties_to_the_first_index(device):
     kernel = viterbi.decode(
         observation.to(device), transition.to(device), initial.to(device))
     np.testing.assert_array_equal(kernel.cpu().numpy(), plain.numpy())
+
+
+def test_pitch_decode_first_made_under_inference_mode(device):
+    """A process whose first pitch decode runs under torch.inference_mode,
+    as a training run's validation does, decodes through K2 and as a
+    decode outside that mode does"""
+    from promonet_tpu_torch.preprocess import pitch
+    scores = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (200, 256))).float().to(device)
+    pitch.decode_constants.cache_clear()
+    launches = viterbi.decode.launches
+    with torch.inference_mode():
+        first = pitch.decode(scores, 50., 550.)
+    assert viterbi.decode.launches == launches + 1
+    again = pitch.decode(scores, 50., 550.)
+    for ours, theirs in zip(first, again):
+        assert torch.equal(ours, theirs)
 
 
 def _pitch_observation(kind, frames, seed):

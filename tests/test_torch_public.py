@@ -9,7 +9,9 @@ averages (float64 means of the same files): equal. Spectrograms within
 `test_torch_ops.py` holds it (quiet bins round otherwise in dB); log-mels
 within 1e-5 absolute and relative; PPGs within 1e-5; speaker embeddings,
 unit vectors, within 1e-6 per element, as `test_torch_speaker.py` holds
-them; `loudness.shift` within 4e-8.
+them; `loudness.shift` within 4e-8. The public names the port gained
+last (`model`, `models.get_padding`, `models.discriminator.
+gen_filterbank`) equal; `utils.timer.profile` writes a trace.
 """
 import json
 
@@ -343,6 +345,44 @@ def test_receptive_field_matches_jax():
     arguments = ((8, 8, 4), (4, 4, 2), (3, 5), ((1, 2), (1, 3, 9)))
     assert port.models.hifigan.receptive_field_frames(*arguments) == \
         jax_hifigan.receptive_field_frames(*arguments)
+
+
+def test_model_is_the_models_alias():
+    assert port.model is port.models
+    assert promonet_tpu.model is promonet_tpu.models
+
+
+def test_get_padding_matches_jax():
+    for kernel_size in range(1, 12):
+        for dilation in range(1, 6):
+            for stride in (1, 2):
+                assert port.models.get_padding(
+                    kernel_size, dilation, stride) == \
+                    promonet_tpu.models.get_padding(
+                        kernel_size, dilation, stride)
+    assert port.models.get_padding(7, 3) == 9
+
+
+@pytest.mark.parametrize('n, keep_size', [
+    (64, False), (64, True), (513, False), (513, True)])
+def test_gen_filterbank_matches_jax(n, keep_size):
+    theirs = np.asarray(promonet_tpu.models.discriminator.gen_filterbank(
+        n, 22050, keep_size))
+    ours = port.models.discriminator.gen_filterbank(n, 22050, keep_size)
+    assert ours.dtype == torch.float32
+    assert ours.shape == (n + keep_size, n + 1)
+    np.testing.assert_array_equal(ours.numpy(), theirs)
+
+
+def test_profile_writes_a_trace(tmp_path):
+    """`utils.timer.profile` leaves a Chrome trace of the region's
+    operations under the directory"""
+    with port.utils.timer.profile(tmp_path / 'trace'):
+        torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
+    traces = list((tmp_path / 'trace').glob('*.pt.trace.json'))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())['traceEvents']
+    assert any('matmul' in event.get('name', '') for event in events)
 
 
 @pytest.mark.parametrize('frames', [1, 7, 120])

@@ -2,7 +2,8 @@
 
 The plain PyTorch version (the CPU path) only adds and compares, as the
 JAX scan and the Pallas kernel do, so the decoded paths must be equal
-exactly, ties included (first index wins).
+exactly, ties included (first index wins). A transition made under
+`torch.inference_mode` gets a band analysed anew on each call.
 """
 import itertools
 
@@ -15,6 +16,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from promonet_tpu.ops import viterbi as jax_viterbi
 from promonet_tpu_torch.ops import viterbi
+from promonet_tpu_torch.preprocess import pitch
 
 
 def _problem(seed, frames, states, width=9.):
@@ -98,6 +100,30 @@ def test_decode_counts_no_launch_on_cpu():
     before = viterbi.decode.launches
     _ours(*_problem(0, 5, 8))
     assert viterbi.decode.launches == before
+
+
+def test_band_of_an_inference_tensor_is_analysed_each_call():
+    """A transition made under torch.inference_mode has no version counter:
+    its band is analysed on each call, not cached (a training run's
+    validation makes the pitch decode's first transition there); the
+    pitch decode's cached constants are ordinary tensors whatever the
+    caller's mode"""
+    pitch.decode_constants.cache_clear()
+    try:
+        with torch.inference_mode():
+            transition = viterbi.triangular_transition(256, 9.)
+            first = viterbi.banded(transition)
+            second = viterbi.banded(transition)
+            constants = pitch.decode_constants(256, 9., 'cpu')
+    finally:
+        pitch.decode_constants.cache_clear()
+    assert first is not second
+    np.testing.assert_array_equal(first.values.numpy(), second.values.numpy())
+    assert not any(tensor.is_inference() for tensor in constants)
+    ordinary = viterbi.triangular_transition(256, 9.)
+    assert viterbi.banded(ordinary) is viterbi.banded(ordinary)
+    np.testing.assert_array_equal(
+        viterbi.banded(ordinary).values.numpy(), first.values.numpy())
 
 
 ###############################################################################
