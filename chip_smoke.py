@@ -190,8 +190,8 @@ Phases, each printed as one JSON line with the seconds since the start
    checksum of the generator's trainable weights unchanged); released,
    the run finishes at step 8, leaves no protocol file, and
    notifications.jsonl holds its 'train' start and completion; phase 14's
-   RUNS_DIR held the start and completion of each of its four
-   evaluate.datasets calls.
+   RUNS_DIR held the start and completion of its corpus's preprocessing
+   and of each of its four evaluate.datasets calls.
 15c. data parallel: a process group of one rank under NCCL (a FileStore
    under build/), `train` at full width for 2 steps in one resident
    dispatch (5 all-reduces: two gradient buckets a step and the metrics;
@@ -274,8 +274,11 @@ Phases, each printed as one JSON line with the seconds since the start
    shipped ones): `preprocess.from_audio` on the main path's audio, one
    K2 decode, pitch within PITCH_THRESHOLD_CENTS of the signal's known
    pitch in the median, the shipped speaker encoder's unit x-vector and a
-   transcriber; then the main path's edit with the release generator
-   under runs/promonet/synthetic.py (24 speakers), twice: 12 K1 and 1 K2
+   transcriber; then the release generator read by name and from its run
+   directory runs/promonet/release (resolved to generator-00155000 as
+   the JAX package resolves it; the two state dicts' digests equal), and
+   the main path's edit with the latter under runs/promonet/synthetic.py
+   (24 speakers), twice: 12 K1 and 1 K2
    launches a call, finite audio of frames * HOPSIZE samples, the second
    call timed, and the output's pitch (read by the same extractors)
    against the edited contour, reported. Where the release generator is
@@ -284,8 +287,9 @@ Phases, each printed as one JSON line with the seconds since the start
 22c. dataset pipeline: `run.sh`'s dataset chain through the port's
    command lines, each in a process of its own with `--config` (every
    directory under a temporary directory in build/, an empty
-   CHECKPOINTS_DIR, so the extractors are the shipped ones, STEPS 2; else
-   the default configuration at full width) and `--gpu 0`, on trees made
+   CHECKPOINTS_DIR, so the extractors are the shipped ones, STEPS 2,
+   TRAINING_DATASET 'libritts'; else the default configuration at full
+   width) and `--gpu 0`, on trees made
    from a seed in the published datasets' layouts (PIPELINE_TREES): a
    LibriTTS tree at 24 kHz (the ten held-out speakers of the recomputed
    partition and 14 others, 12 utterances each: 288 wavs, 12.6 minutes),
@@ -299,8 +303,14 @@ Phases, each printed as one JSON line with the seconds since the start
    `partition` (20 test stems, all of the held-out speakers, at least a
    batch to train on, no stem in two splits), `train` (a generator
    checkpoint at step 2, finite validation losses, 12 K1 and 1 K2 per
-   validation item) and `evaluate` (results.json with the 11 conditions
-   and finite loudness, periodicity and PPG) over LibriTTS. Each step's
+   validation item; the variable pitch bins its generator computed,
+   cached under stats/ beside the cache, equal to the quantiles
+   recomputed here from the train partition's cached pitch, strictly
+   increasing and not the log-uniform fallback) and `evaluate`
+   (results.json with the 11 conditions and finite loudness, periodicity
+   and PPG; the bins' file left as it was) over LibriTTS; the run
+   directory's notifications.jsonl holds the start and completion of
+   download, augment, preprocess, train and evaluate, in order. Each step's
    line: its wall seconds (the process start included), the wavs and
    seconds of audio it handled, its process's launch counts and the
    card's name and power limit. In this process: the preprocess CLI's
@@ -412,6 +422,15 @@ def tree_digest(tree):
             digest.update(part.encode() + b'\0')
         digest.update(array.tobytes())
     return digest.hexdigest()
+
+
+def state_digest(torch, state):
+    """`tree_digest` of a state dict's tensors, read back to the host as
+    their bytes, each one's dtype in its key"""
+    return tree_digest({
+        f'{name}:{value.dtype}': value.detach().cpu().contiguous().reshape(
+            -1).view(torch.uint8).numpy()
+        for name, value in state.items()})
 
 
 def within_bf16_bound(torch, kernel, plain):
@@ -1718,13 +1737,16 @@ def evaluation_path(torch, port, device, config, pitch_model, ppg_model,
         if not record['same_conditions']:
             raise AssertionError('the evaluate CLI wrote other conditions')
 
-        # Each of the four evaluate.datasets calls (the evaluation, the
-        # mels and WORLD baselines, the CLI) reported its start and end
+        # The corpus's preprocessing and each of the four
+        # evaluate.datasets calls (the evaluation, the mels and WORLD
+        # baselines, the CLI) reported its start and end
         statuses = notifications(eval_config.RUNS_DIR)
         MEASURED['evaluation_notifications'] = statuses
         emit(phase='evaluation_notifications', records=statuses)
-        if statuses != [['evaluate', 'started'],
-                        ['evaluate', 'completed']] * 4:
+        if statuses != [['preprocess', 'started'],
+                        ['preprocess', 'completed']] + [
+                            ['evaluate', 'started'],
+                            ['evaluate', 'completed']] * 4:
             raise AssertionError('the evaluation was not notified')
     return launches, k1_error, k2_error
 
@@ -3254,7 +3276,7 @@ def from_probabilities_path(torch, port, device, config, audio, encoder):
                     short, encoder, config, device)}
             if frames:
                 outputs['loudness'] = port.preprocess.loudness.from_audio(
-                    short, config)
+                    short, config, bands=None)
         expected = {
             'spectrogram': [config.NUM_FFT // 2 + 1, frames],
             'mels': [config.NUM_MELS, frames],
@@ -3283,10 +3305,11 @@ def shipped_weights_path(torch, port, device, audio):
     digest; `preprocess.from_audio` with the default (shipped) pitch CNN
     and PPG encoder on the main path's audio (pitch error against the
     signal's known pitch, at most PITCH_THRESHOLD_CENTS) and the shipped
-    speaker encoder; then the edit chain with the release generator under
-    runs/promonet/synthetic.py, twice, 12 K1 and 1 K2 launches a call.
-    Returns the K1 and K2 launches of one edit chain (None, None where
-    the release generator is not in the checkout)"""
+    speaker encoder; then the release generator read by name and from its
+    run directory (the same state-dict digest), and the edit chain with
+    the latter under runs/promonet/synthetic.py, twice, 12 K1 and 1 K2
+    launches a call. Returns the K1 and K2 launches of one edit chain
+    (None, None where the release generator is not in the checkout)"""
     from promonet_tpu_torch.ops import resblock, viterbi
     from promonet_tpu_torch.utils import ocdbt, zstd
 
@@ -3369,8 +3392,25 @@ def shipped_weights_path(torch, port, device, audio):
     release_config = port.config.load(ROOT / RELEASE_CONFIG).replace(
         CHECKPOINTS_DIR=Path(empty.name))
     start = time.perf_counter()
-    generator = port.load.generator(release, release_config, device)
+    by_name = port.load.generator(release, release_config, device)
     load_seconds = time.perf_counter() - start
+    # The run directory resolves to that checkpoint, as the JAX package's
+    # `load_params` resolves it; the edit runs from this generator
+    start = time.perf_counter()
+    generator = port.load.generator(release.parent, release_config, device)
+    run_directory_seconds = time.perf_counter() - start
+    resolved = port.utils.checkpoint.latest_path(release.parent)
+    digests = [state_digest(torch, model.state_dict())
+               for model in (by_name, generator)]
+    del by_name
+    emit(phase='shipped_weights', path='release_run_directory',
+         directory=str(release.parent.relative_to(ROOT)),
+         resolved=None if resolved is None else resolved.name,
+         load_seconds=run_directory_seconds,
+         digest_equal=digests[0] == digests[1])
+    if resolved != release or digests[0] != digests[1]:
+        raise AssertionError(
+            f'{release.parent} resolves to {resolved}, not {release}')
     for call in (1, 2):
         reset_launch_counts(resblock, viterbi)
         torch.cuda.synchronize()
@@ -3424,8 +3464,10 @@ PIPELINE_TREES = dict(
     daps=dict(rate=44100, scripts=2, seconds=1., quiet_peak=0.1),
     vctk=dict(rate=48000, speakers=4, utterances=3, seconds=1.))
 # Settings of the chain's configuration file besides its directories: the
-# default configuration at full width, cut to two training steps
-PIPELINE_SETTINGS = {'STEPS': 2}
+# default configuration at full width, cut to two training steps, with
+# the chain's corpus as TRAINING_DATASET (so the generator's pitch bins
+# are computed from the chain's cache; 1230 speakers, LibriTTS's)
+PIPELINE_SETTINGS = {'STEPS': 2, 'TRAINING_DATASET': 'libritts'}
 # (stage, arguments, seconds its process may take), in run.sh's order
 PIPELINE_STEPS = (
     ('data.download', ['--datasets', 'daps', 'libritts', 'vctk'], 180),
@@ -3508,8 +3550,10 @@ def dataset_pipeline_path(torch, port, device, smi, tf32_defaults):
     process of its own on the card, from trees in the published datasets'
     layouts to a trained checkpoint's evaluation; each step's output
     checked, the preprocess CLI's files against in-process calls with the
-    same shipped extractors (1 K2 each), and one edit from the trained
-    checkpoint (12 K1, 1 K2). Returns the K1 and K2 launches of this
+    same shipped extractors (1 K2 each), the pitch bins the train CLI
+    computed against a recomputation, the notifications of the five
+    notified steps, and one edit from the trained checkpoint (12 K1, 1
+    K2). Returns the K1 and K2 launches of this
     process's calls: the three checks and the edit"""
     from promonet_tpu_torch.ops import resblock, viterbi
     device = torch.device(device)
@@ -3755,6 +3799,45 @@ def dataset_pipeline_path(torch, port, device, smi, tf32_defaults):
                     no_launch, resblock=12 * items, viterbi=items):
             raise AssertionError('the training run is wrong')
 
+        # The variable pitch bins the train CLI's generator computed over
+        # the train partition's cached pitch and cached beside the cache,
+        # against the same quantiles recomputed here
+        bins_files = sorted((config.CACHE_DIR.parent / 'stats').glob(
+            f'libritts-{config.PITCH_BINS}*.npy'))
+        if len(bins_files) != 1:
+            raise AssertionError(f'pitch-bin statistics: {bins_files}')
+        bins_file = bins_files[0]
+        bins = np.load(bins_file)
+        voiced = []
+        for stem in train_data.stems:
+            pitch = np.load(cache / f'{stem}{infix}-pitch.npy')
+            periodicity = np.load(cache / f'{stem}{infix}-periodicity.npy')
+            voiced.append(pitch[
+                ~np.isnan(pitch) & (periodicity > config.VOICING_THRESHOLD)])
+        voiced = np.sort(np.concatenate(voiced))
+        expected = voiced[np.linspace(
+            len(voiced) / config.PITCH_BINS, len(voiced) - 1,
+            config.PITCH_BINS).astype(np.int64)].astype(np.float32)
+        log_uniform = np.exp(np.linspace(
+            np.log(config.FMIN), np.log(config.FMAX),
+            config.PITCH_BINS)).astype(np.float32)
+        bins_bytes = bins_file.read_bytes()
+        record = dict(
+            phase='dataset_pipeline', check='pitch_bins',
+            file=str(bins_file.relative_to(directory)),
+            voiced_frames=len(voiced), bins=len(bins),
+            dtype=str(bins.dtype), lowest_hz=float(bins[0]),
+            median_hz=float(bins[len(bins) // 2]), highest_hz=float(bins[-1]),
+            equal_to_recomputation=bool(
+                bins.dtype == expected.dtype and
+                np.array_equal(bins, expected)),
+            strictly_increasing=bool(np.all(np.diff(bins) > 0)),
+            log_uniform=bool(np.array_equal(bins, log_uniform)))
+        emit(**record)
+        if not record['equal_to_recomputation'] or \
+                not record['strictly_increasing'] or record['log_uniform']:
+            raise AssertionError('the computed pitch bins are wrong')
+
         # 6. Evaluate the step-STEPS generator over the test partition
         record = run('--checkpoint', str(checkpoint))
         test = partition['test']
@@ -3781,6 +3864,21 @@ def dataset_pipeline_path(torch, port, device, smi, tf32_defaults):
                 not launches['resblock'] or launches['resblock'] % 12 or \
                 launches['viterbi_logfreq']:
             raise AssertionError('the evaluation is wrong')
+
+        # The evaluate CLI's generator read the bins and left them, and
+        # each step but the partition reported its start and end
+        statuses = notifications(config.RUNS_DIR)
+        record = dict(
+            phase='dataset_pipeline', check='bins_and_notifications',
+            bins_unchanged=bins_file.read_bytes() == bins_bytes,
+            notifications=statuses)
+        emit(**record)
+        if not record['bins_unchanged'] or statuses != [
+                [job, status]
+                for job in ('download', 'augment', 'preprocess', 'train',
+                            'evaluate')
+                for status in ('started', 'completed')]:
+            raise AssertionError('the bins moved or a step was not notified')
 
         # One test stem edited with the trained generator in this process
         stem = test[0]
@@ -4144,7 +4242,8 @@ def main():
     # are the path's own, and the contours must be equal
     spectra, axis = harmonics_module.stft_features(
         audio, config=config, device=device)
-    through_kernel = harmonics_module.viterbi(spectra, axis)
+    through_kernel = harmonics_module.viterbi(
+        spectra, axis, max_harmonics=3)
     dense = viterbi.logfreq_transition_dense(axis).to(device)
 
     def plain_logfreq(observation, frequencies, initial):
@@ -4158,7 +4257,8 @@ def main():
     kernel_logfreq = viterbi.decode_logfreq
     viterbi.decode_logfreq = plain_logfreq
     try:
-        through_plain = harmonics_module.viterbi(spectra, axis)
+        through_plain = harmonics_module.viterbi(
+            spectra, axis, max_harmonics=3)
     finally:
         viterbi.decode_logfreq = kernel_logfreq
     del dense
@@ -4177,8 +4277,10 @@ def main():
     # The same STFT frames decoded on the card and by the plain CPU path
     spectra, axis = harmonics_module.stft_features(
         small, config=config, device=device)
-    on_card = harmonics_module.viterbi(spectra, axis).cpu().numpy()
-    on_cpu = harmonics_module.viterbi(spectra.cpu(), axis).numpy()
+    on_card = harmonics_module.viterbi(
+        spectra, axis, max_harmonics=3).cpu().numpy()
+    on_cpu = harmonics_module.viterbi(
+        spectra.cpu(), axis, max_harmonics=3).numpy()
     whole = harmonics_module.from_audio(small, config=config, device='cpu')
     record = dict(
         phase='harmonics_reference', frames=spectra.shape[0],

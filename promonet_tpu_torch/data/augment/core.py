@@ -16,6 +16,7 @@ import numpy as np
 
 from ... import config as config_module
 from ...utils import audio as audio_module
+from ...utils.notify import notify
 
 
 def sample(count, rng, config):
@@ -64,9 +65,10 @@ def from_files_to_files(audio_files, output_files, ratios, kind, config):
         audio_module.save(output_file, augmented, sample_rate)
 
 
+@notify('augment')
 def datasets(datasets=None, config=None):
     """Augment the cached datasets of `datasets` (None: config.DATASETS)
-    and write their ratio files"""
+    and write their ratio files; reported by `utils.notify` ('augment')"""
     config = config_module.default() if config is None else config
     rng = np.random.default_rng(config.RANDOM_SEED)
     for name in config.DATASETS if datasets is None else datasets:

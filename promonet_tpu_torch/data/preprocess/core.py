@@ -7,10 +7,12 @@ periodicity, the linear spectrogram and the PPG.
 from ... import config as config_module
 from ... import load
 from ... import preprocess
+from ...utils.notify import notify
 
 FEATURES = ('loudness', 'pitch', 'periodicity', 'spectrogram', 'ppg')
 
 
+@notify('preprocess')
 def datasets(
     datasets=None,
     features=FEATURES,
@@ -22,7 +24,8 @@ def datasets(
     """Preprocess each dataset of `datasets` (None: config.DATASETS)
 
     pitch_model and ppg_model None take `load.pitch_model` and
-    `load.ppg_model` of config, where the features need them.
+    `load.ppg_model` of config, where the features need them. The run is
+    reported by `utils.notify` ('preprocess').
     """
     config = config_module.default() if config is None else config
     if pitch_model is None and config.PITCH_ESTIMATOR == 'cnn' and (

@@ -13,6 +13,7 @@ which leaves the spectral embedding) and says so on stderr; a checkpoint
 that exists but cannot be read raises.
 """
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -127,16 +128,28 @@ def text(file):
         return handle.read()
 
 
-def pitch_distribution(config=None):
-    """Boundaries of the variable-width pitch bins, in Hz
+def pitch_distribution(config=None, dataset=None, partition='train'):
+    """Boundaries of the variable-width pitch bins, in Hz: PITCH_BINS
+    quantiles of every voiced pitch frame of a dataset's partition
 
-    Reads the statistics file the JAX package ships for the configured
-    training dataset. Where there is none, falls back to log-uniform
-    quantiles over [FMIN, FMAX], as the JAX function does when it has no
-    dataset to compute them from. Unlike the JAX function, this never
-    computes or writes the file.
+    dataset None takes config.TRAINING_DATASET. The file is named
+    '<dataset>-<PITCH_BINS><key>.npy' ('-loudness', '-pitch' and
+    '-viterbi' in the key as the configuration augments and decodes), and
+    resolved in this order:
+    1. the file the JAX package ships, config.ASSETS_DIR / 'stats', read
+       only;
+    2. the port's own, config.CACHE_DIR.parent / 'stats', which an
+       earlier call wrote;
+    3. else computed over the cached features (`_compute_pitch_distribution`)
+       and written there, atomically.
+    Where computing raises (no dataset on disk), log-uniform boundaries
+    over [FMIN, FMAX], as the JAX function falls back. The result is kept
+    for the process, keyed on the file: `convert` asks for it on every
+    conversion.
     """
     config = config_module.default() if config is None else config
+    if dataset is None:
+        dataset = config.TRAINING_DATASET
     key = ''
     if config.AUGMENT_LOUDNESS:
         key += '-loudness'
@@ -144,16 +157,61 @@ def pitch_distribution(config=None):
         key += '-pitch'
     if config.VITERBI_DECODE_PITCH:
         key += '-viterbi'
-    file = (
-        config.ASSETS_DIR / 'stats' /
-        f'{config.TRAINING_DATASET}-{config.PITCH_BINS}{key}.npy')
-    if file.exists():
-        return np.load(file)
-    return np.exp(
-        np.linspace(
-            np.log(config.FMIN),
-            np.log(config.FMAX),
-            config.PITCH_BINS)).astype(np.float32)
+    name = f'{dataset}-{config.PITCH_BINS}{key}.npy'
+    shipped = Path(config.ASSETS_DIR) / 'stats' / name
+    file = Path(config.CACHE_DIR).parent / 'stats' / name
+    cache = pitch_distribution.__dict__.setdefault('cache', {})
+    cache_key = (str(shipped), str(file))
+    if cache_key not in cache:
+        if shipped.exists():
+            cache[cache_key] = np.load(shipped)
+        elif file.exists():
+            cache[cache_key] = np.load(file)
+        else:
+            try:
+                cache[cache_key] = _compute_pitch_distribution(
+                    dataset, partition, config)
+            except Exception:
+                cache[cache_key] = np.exp(np.linspace(
+                    np.log(config.FMIN), np.log(config.FMAX),
+                    config.PITCH_BINS)).astype(np.float32)
+            else:
+                # Ranks of one data-parallel run may write it at once
+                file.parent.mkdir(parents=True, exist_ok=True)
+                partial = file.with_name(f'{file.name}.{os.getpid()}.tmp')
+                with open(partial, 'wb') as handle:
+                    np.save(handle, cache[cache_key])
+                os.replace(partial, file)
+    return cache[cache_key]
+
+
+def _compute_pitch_distribution(dataset, partition, config):
+    """The quantiles over every voiced frame of the partition's cached
+    pitch (NaN-free, periodicity above VOICING_THRESHOLD), float32, as the
+    JAX package computes them
+
+    Raises where the dataset is not cached, or has no voiced frame.
+    """
+    from .data import Dataset
+
+    if not (Path(config.CACHE_DIR) / dataset).is_dir():
+        # Nothing to read: the partition's first stem would raise
+        raise FileNotFoundError(Path(config.CACHE_DIR) / dataset)
+    dataset_object = Dataset(dataset, partition, config)
+    viterbi = '-viterbi' if config.VITERBI_DECODE_PITCH else ''
+    voiced_pitch = []
+    for stem in dataset_object.stems:
+        pitch = array(dataset_object.cache / f'{stem}{viterbi}-pitch.npy')
+        periodicity = array(
+            dataset_object.cache / f'{stem}{viterbi}-periodicity.npy')
+        voiced = np.logical_and(
+            ~np.isnan(pitch), periodicity > config.VOICING_THRESHOLD)
+        voiced_pitch.append(pitch[voiced])
+    pitch = np.sort(np.concatenate(voiced_pitch))
+    indices = np.linspace(
+        len(pitch) / config.PITCH_BINS, len(pitch) - 1,
+        config.PITCH_BINS).astype(np.int64)
+    return pitch[indices].astype(np.float32)
 
 
 def per_speaker_averages(dataset=None, partition='train', config=None):
@@ -212,9 +270,10 @@ def generator(checkpoint=None, config=None, device='cuda'):
     - `checkpoint` an orbax directory (a JAX checkpoint, such as
       runs/promonet/release/generator-00155000): its weights, carried
       over by `models.bridge.generator_state_dict`;
-    - `checkpoint` another directory: its newest readable
-      `generator-*.pt`;
-    - None: config.DEFAULT_CHECKPOINT where set, else the newest port
+    - `checkpoint` another directory (a run directory of either
+      package): its newest readable `generator-*.pt` file or
+      `generator-*` orbax directory (`utils.checkpoint.latest_path`);
+    - None: config.DEFAULT_CHECKPOINT where set, else the newest
       checkpoint under RUNS_DIR / CONFIG if its weights fit the
       configuration; else weights seeded from 0, with a notice.
     """
@@ -235,6 +294,14 @@ def generator(checkpoint=None, config=None, device='cuda'):
         _notice(f'no generator checkpoint under {run}; using random init')
         return init.seeded(model, 0).to(device).eval()
     params = checkpoint_module.load(resolved)['params']
+    if checkpoint_module.is_orbax(resolved):
+        from .models import bridge
+
+        try:
+            params = bridge.generator_state_dict(params)
+        except (KeyError, ValueError):
+            # Another model's tree: it does not fit, as below
+            params = {}
     expected = model.state_dict()
     if set(params) != set(expected) or any(
             params[name].shape != value.shape
@@ -307,18 +374,18 @@ def speaker_encoder(path=None, config=None, device='cuda'):
 
 def _generator_params(checkpoint):
     """The state dict of a generator checkpoint file, orbax directory or
-    run directory"""
+    run directory (its newest checkpoint of either kind)"""
+    if checkpoint.is_dir() and not checkpoint_module.is_orbax(checkpoint):
+        resolved = checkpoint_module.latest_path(checkpoint)
+        if resolved is None:
+            raise FileNotFoundError(
+                f'no readable generator-* checkpoint in {checkpoint}')
+        checkpoint = resolved
     if checkpoint_module.is_orbax(checkpoint):
         from .models import bridge
 
         return bridge.generator_state_dict(
             checkpoint_module.load(checkpoint)['params'])
-    if checkpoint.is_dir():
-        resolved = checkpoint_module.latest_path(checkpoint)
-        if resolved is None:
-            raise FileNotFoundError(
-                f'no readable generator-*.pt checkpoint in {checkpoint}')
-        checkpoint = resolved
     return checkpoint_module.load(checkpoint)['params']
 
 

@@ -416,9 +416,8 @@ class DiscriminatorMagFree(nn.Module):
     def spectrogram(self, x):
         n_fft, hop, window_length = self.resolution
         window = stft_ops.hann_window(window_length, device=x.device)
-        x = stft_ops.reflect_pad(x[:, 0], n_fft // 2)
-        magnitude = stft_ops.stft(x, n_fft, hop, window=window,
-                                  magnitude=True)
+        magnitude = stft_ops.stft(
+            x[:, 0], n_fft, hop, window=window, center=True, magnitude=True)
         # amplitude_to_DB(multiplier=20, amin=1e-5, top_db=80) over the
         # whole batch
         db = 20. * torch.log10(torch.clamp(magnitude, min=1e-5))

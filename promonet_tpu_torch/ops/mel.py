@@ -39,12 +39,14 @@ def mel_to_hz(mels):
 
 
 @functools.lru_cache(maxsize=8)
-def mel_filterbank(sample_rate, n_fft, n_mels):
+def mel_filterbank(sample_rate, n_fft, n_mels, fmin=0.0, fmax=None):
     """Slaney-normalized triangular filterbank (n_mels, n_freq), float32
 
-    Spans 0 Hz to Nyquist, librosa.filters.mel's defaults.
+    Spans `fmin` to `fmax` Hz (None: Nyquist), by default librosa.filters.
+    mel's 0 Hz to Nyquist. Cached on all five arguments; read-only.
     """
-    fmin, fmax = 0.0, sample_rate / 2
+    if fmax is None:
+        fmax = sample_rate / 2
     fftfreqs = fft_frequencies(sample_rate, n_fft)
     mel_f = mel_to_hz(
         np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2))

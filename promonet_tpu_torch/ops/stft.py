@@ -45,10 +45,17 @@ def stft(
     n_fft,
     hop_length,
     window=None,
+    center=False,
     magnitude=False,
     magnitude_epsilon=0.
 ):
-    """STFT of (..., T) with center=False, as (..., n_freq, n_frames)"""
+    """STFT of (..., T), as (..., n_freq, n_frames)
+
+    Frames start at multiples of hop_length; center=True reflect-pads
+    n_fft // 2 samples on both sides first, as torch.stft's default does.
+    """
+    if center:
+        audio = reflect_pad(audio, n_fft // 2)
     frames = frame(audio, n_fft, hop_length)
     if frames.shape[-2] == 0:
         # No frame fits; the FFT of none is refused on the CPU

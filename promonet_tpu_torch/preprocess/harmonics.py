@@ -143,8 +143,9 @@ def viterbi(
     frames,
     frequencies,
     pitch=None,
-    max_harmonics=3,
-    harmonic_width_ratio=0.8
+    max_harmonics=None,
+    harmonic_width_ratio=0.8,
+    config=None
 ):
     """Iterative masked Viterbi decoding of F0..Fk
 
@@ -160,10 +161,15 @@ def viterbi(
         frames: (T, N) float32 tensor of analysis features
         frequencies: (N,) ascending float32 numpy axis in Hz
         pitch: (1, T) or (T,) F0 in Hz, or None
+        max_harmonics: contours to decode (None: config.MAX_HARMONICS)
+        config: a `config.Config`; None reads the environment's
 
     Returns
         (max_harmonics, T) float32 tensor on the device of `frames`
     """
+    if max_harmonics is None:
+        config = config_module.default() if config is None else config
+        max_harmonics = config.MAX_HARMONICS
     device = frames.device
     num_frames, num_states = frames.shape
     frequencies = np.asarray(frequencies, np.float32)

@@ -16,12 +16,14 @@ def perceptual_weights(config):
     return spectral.a_weighting(frequencies)[:, None] - float(config.REF_DB)
 
 
-def from_audio(audio, config, bands=None):
+def from_audio(audio, config=None, bands=1):
     """A-weighted loudness of audio (1, T): (n_freq or bands, frames)
 
     The dB conversion clips at 80 dB below the maximum over the whole
-    input (librosa's top_db). bands=None keeps all n_freq bins.
+    input (librosa's top_db). bands=1, the JAX package's default, is the
+    mean over all bins; bands=None keeps all n_freq bins.
     """
+    config = config_module.default() if config is None else config
     padding = (config.WINDOW_SIZE - config.HOPSIZE) // 2
     audio = stft_ops.reflect_pad(audio, padding)
     window = stft_ops.hann_window(config.WINDOW_SIZE, device=audio.device)

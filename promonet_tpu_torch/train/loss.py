@@ -68,8 +68,7 @@ def _stft_magnitude(x, fft_size, hop_size, win_length):
         pad = (fft_size - win_length) // 2
         window = F.pad(window, (pad, fft_size - win_length - pad))
     magnitude = stft_ops.stft(
-        stft_ops.reflect_pad(x, fft_size // 2), fft_size, hop_size,
-        window=window, magnitude=True)
+        x, fft_size, hop_size, window=window, center=True, magnitude=True)
     return torch.sqrt(torch.clamp(magnitude, min=1e-7))
 
 

@@ -116,8 +116,9 @@ def top_level_keys(path):
 
 def prune(directory, keep_interval=20000, keep_latest=3,
           prefixes=('generator', 'discriminator')):
-    """Delete old checkpoints of a run: of each prefix, all but the
-    `keep_latest` newest and every multiple of `keep_interval`"""
+    """Delete old checkpoint files of a run: of each prefix, all but the
+    `keep_latest` newest and every multiple of `keep_interval`; only the
+    port's `.pt` files are counted and deleted, a JAX checkpoint never"""
     directory = Path(directory)
     if not directory.is_dir():
         return
@@ -133,23 +134,27 @@ def prune(directory, keep_interval=20000, keep_latest=3,
 
 
 def latest_path(directory, prefix='generator-*'):
-    """The newest readable `<prefix>.pt` in `directory`, or None
+    """The newest readable checkpoint of `prefix` in `directory`, or None
 
-    `*` in `prefix` stands for the step. A newest file that does not
-    parse (a write cut short) is skipped for the newest one that does, as
-    the JAX package's `latest_path` does.
+    `*` in `prefix` stands for the step. Both packages' checkpoints are
+    candidates: the port's `<prefix>.pt` files and the JAX package's
+    `<prefix>` orbax directories; at an equal step the port's file is
+    taken. A newest checkpoint that does not parse (a write cut short) is
+    skipped for the newest one that does, as the JAX package's
+    `latest_path` does.
     """
     directory = Path(directory)
     if not directory.is_dir():
         return None
     pattern = re.compile(
-        '^' + re.escape(prefix).replace(r'\*', r'(\d+)') + r'\.pt$')
+        '^' + re.escape(prefix).replace(r'\*', r'(\d+)') + r'(\.pt)?$')
     candidates = []
     for entry in directory.iterdir():
         match = pattern.match(entry.name)
-        if match:
-            candidates.append((int(match.group(1)), entry))
-    for _, entry in sorted(candidates, reverse=True):
+        if match and (match.group(2) or is_orbax(entry)):
+            candidates.append(
+                (int(match.group(1)), bool(match.group(2)), entry))
+    for _, _, entry in sorted(candidates, reverse=True):
         if readable(entry):
             return entry
     return None

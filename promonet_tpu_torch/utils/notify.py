@@ -1,9 +1,10 @@
 """Job start, completion and failure notifications (counterpart of
 `promonet_tpu/utils/notify.py`)
 
-`notify(name)` wraps a long-running job (`train`, `evaluate.datasets`):
-each start, completion and failure is appended as one JSON object to
-`RUNS_DIR / 'notifications.jsonl'`, and POSTed as JSON to the URL in
+`notify(name)` wraps a long-running job (`train`, `evaluate.datasets`,
+`data.{download,augment,preprocess}.datasets`): each start, completion
+and failure is appended as one JSON object to `RUNS_DIR /
+'notifications.jsonl'`, and POSTed as JSON to the URL in
 PROMONET_NOTIFY_URL where that is set (5 s timeout). Nothing leaves the
 machine unless that variable is set. A failure of the log or of the
 webhook is swallowed; the job's own exception is re-raised.

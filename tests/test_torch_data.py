@@ -1,6 +1,9 @@
 """The port's data pipeline held against the JAX package's: the
 formant-synthesis corpus, its preprocessing, the partitions and the
-Dataset; and a check that the port writes nothing into the JAX package.
+Dataset; the variable pitch bins computed over a corpus of another name
+(equal to the JAX package's quantiles to the bit, cached under
+CACHE_DIR.parent/stats); and a check that the port writes nothing into
+the JAX package.
 
 Both packages make the corpus (3 speakers x 4 utterances x 0.6 s) from
 the same seed, in directories of their own; the port preprocesses with
@@ -56,7 +59,8 @@ def corpora(tmp_path_factory):
             jax.device_get(jax_ppg._model()[1])))
     config = port.config.load().replace(
         CACHE_DIR=root / 'port' / 'cache',
-        PARTITIONS_DIR=root / 'port' / 'partitions')
+        PARTITIONS_DIR=root / 'port' / 'partitions',
+        RUNS_DIR=root / 'port' / 'runs')
     port.data.synthetic.create(
         'synthetic', **SHAPE, pitch_model=pitch_model, ppg_model=ppg_model,
         config=config, device='cpu')
@@ -236,6 +240,110 @@ def test_dataset_drops_mains_hum(corpora, tmp_path):
         config)
     assert port.data.Dataset('hum', 'test', config).stems == [
         '0000/000001-100']
+
+
+###############################################################################
+# The variable pitch bins
+###############################################################################
+
+
+@pytest.fixture(scope='module')
+def quantile_corpus(tmp_path_factory):
+    """A port corpus (2 speakers x 4 utterances x 1 s) under a name with no
+    shipped statistics, preprocessed with the shipped extractors, and its
+    configuration"""
+    root = tmp_path_factory.mktemp('quantiles')
+    config = port.config.load().replace(
+        CACHE_DIR=root / 'data' / 'cache',
+        PARTITIONS_DIR=root / 'data' / 'partitions',
+        CHECKPOINTS_DIR=root / 'checkpoints', RUNS_DIR=root / 'runs',
+        TRAINING_DATASET='quantiles')
+    port.data.synthetic.create(
+        'quantiles', speakers=2, utterances=4, seconds=1.0, config=config,
+        device='cpu')
+    return config
+
+
+def _shipped_stats():
+    stats = ROOT / 'promonet_tpu' / 'assets' / 'stats'
+    return {path.name: path.read_bytes() for path in stats.iterdir()}
+
+
+def test_pitch_bins_are_computed_as_jax_computes_them(
+        quantile_corpus, tmp_path, monkeypatch):
+    """Without shipped statistics the bins are the quantiles the JAX
+    package computes over the same cache, written under
+    CACHE_DIR.parent/stats and nowhere else, and read from there
+    afterwards"""
+    config = quantile_corpus
+    shipped = _shipped_stats()
+    # The JAX package over the port's cache, with a copy of its partition
+    assets = tmp_path / 'assets'
+    (assets / 'partitions' / 'multispeaker').mkdir(parents=True)
+    (assets / 'partitions' / 'multispeaker' / 'quantiles.json').write_bytes(
+        (config.PARTITIONS_DIR / 'multispeaker' / 'quantiles.json'
+         ).read_bytes())
+    for name, value in dict(
+            CACHE_DIR=config.CACHE_DIR, DATA_DIR=tmp_path / 'datasets',
+            ASSETS_DIR=assets).items():
+        monkeypatch.setattr(promonet_tpu, name, value)
+    expected = promonet_tpu.load._compute_pitch_distribution(
+        'quantiles', 'train')
+
+    ours = port.load.pitch_distribution(config)
+    assert ours.dtype == expected.dtype == np.float32
+    assert ours.shape == (config.PITCH_BINS,)
+    np.testing.assert_array_equal(ours, expected)
+    np.testing.assert_array_equal(
+        ours, promonet_tpu.load.pitch_distribution('quantiles'))
+    assert not np.array_equal(ours, port.load.pitch_distribution(
+        config, dataset='absent'))
+    np.testing.assert_array_equal(
+        port.models.Generator(config.replace(
+            HIFIGAN_UPSAMPLE_INITIAL_SIZE=32)).pitch_distribution.numpy(),
+        expected)
+
+    # Written once, atomically, beside the cache
+    stats = config.CACHE_DIR.parent / 'stats'
+    name = 'quantiles-256-loudness-pitch-viterbi.npy'
+    assert sorted(path.name for path in stats.iterdir()) == [name]
+    np.testing.assert_array_equal(np.load(stats / name), expected)
+    assert _shipped_stats() == shipped
+
+    # Another process reads the file without touching the dataset
+    computed = []
+    monkeypatch.setattr(port.load.pitch_distribution, 'cache', {})
+    monkeypatch.setattr(
+        port.load, '_compute_pitch_distribution',
+        lambda *args: computed.append(args))
+    np.testing.assert_array_equal(port.load.pitch_distribution(
+        config, dataset='quantiles', partition='train'), expected)
+    assert computed == []
+
+
+def test_pitch_bins_fall_back_where_jax_falls_back(
+        quantile_corpus, tmp_path, monkeypatch):
+    """No cache of the dataset: the log-uniform bins of the JAX package,
+    nothing written; the file the JAX package ships is read first"""
+    config = quantile_corpus
+    shipped = _shipped_stats()
+    monkeypatch.setattr(promonet_tpu, 'ASSETS_DIR', tmp_path / 'assets')
+    monkeypatch.setattr(promonet_tpu, 'CACHE_DIR', tmp_path / 'cache')
+    np.testing.assert_array_equal(
+        port.load.pitch_distribution(config, dataset='absent'),
+        promonet_tpu.load.pitch_distribution('absent'))
+    assert not (config.CACHE_DIR.parent / 'stats' /
+                'absent-256-loudness-pitch-viterbi.npy').exists()
+    # The shipped file goes before a file of the port's own
+    name = 'synthetic-256-loudness-pitch-viterbi.npy'
+    (tmp_path / 'data' / 'stats').mkdir(parents=True)
+    np.save(tmp_path / 'data' / 'stats' / name, np.zeros(256, np.float32))
+    np.testing.assert_array_equal(
+        port.load.pitch_distribution(
+            config.replace(CACHE_DIR=tmp_path / 'data' / 'cache'),
+            dataset='synthetic'),
+        np.load(ROOT / 'promonet_tpu' / 'assets' / 'stats' / name))
+    assert _shipped_stats() == shipped
 
 
 ###############################################################################

@@ -113,7 +113,8 @@ def test_dataset_command_lines_write_what_their_functions_write(tmp_path):
     values = dict(
         CACHE_DIR=str(tmp_path / 'cli' / 'cache'),
         PARTITIONS_DIR=str(tmp_path / 'cli' / 'partitions'),
-        CHECKPOINTS_DIR=str(tmp_path / 'checkpoints'))
+        CHECKPOINTS_DIR=str(tmp_path / 'checkpoints'),
+        RUNS_DIR=str(tmp_path / 'runs'))
     config = port.config.load().replace(**{
         name: Path(value) for name, value in values.items()})
     here = config.replace(

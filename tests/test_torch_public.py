@@ -11,7 +11,10 @@ within 1e-5 absolute and relative; PPGs within 1e-5; speaker embeddings,
 unit vectors, within 1e-6 per element, as `test_torch_speaker.py` holds
 them; `loudness.shift` within 4e-8. The public names the port gained
 last (`model`, `models.get_padding`, `models.discriminator.
-gen_filterbank`) equal; `utils.timer.profile` writes a trace.
+gen_filterbank`) equal; `utils.timer.profile` writes a trace. The JAX
+package's defaults and parameters: the band-mean loudness, MAX_HARMONICS
+in `harmonics.viterbi` (paths equal), `mel_filterbank`'s band (equal)
+and the centred STFT (within 1e-5 of its largest value).
 """
 import json
 
@@ -24,10 +27,12 @@ import torch
 import promonet_tpu
 import promonet_tpu.convert as jax_convert
 from promonet_tpu.edit import grid as jax_edit_grid
+from promonet_tpu.ops import mel as jax_mel
 from promonet_tpu.models import hifigan as jax_hifigan
 from promonet_tpu.ops import grid as jax_grid
 from promonet_tpu.ops import stft as jax_stft
 from promonet_tpu.ops import viterbi as jax_viterbi
+from promonet_tpu.preprocess import harmonics as jax_harmonics
 from promonet_tpu.preprocess import loudness as jax_loudness
 from promonet_tpu.preprocess import ppg as jax_ppg
 from promonet_tpu.preprocess import spectrogram as jax_spectrogram
@@ -113,11 +118,11 @@ def test_loudness_of_short_audio_matches_jax(samples):
             jax_loudness.from_audio(audio, bands=None)
         with pytest.raises(RuntimeError):
             port.preprocess.loudness.from_audio(
-                torch.from_numpy(audio), CONFIG)
+                torch.from_numpy(audio), CONFIG, bands=None)
         return
     theirs = np.asarray(jax_loudness.from_audio(audio, bands=None))
     ours = port.preprocess.loudness.from_audio(
-        torch.from_numpy(audio), CONFIG).numpy()
+        torch.from_numpy(audio), CONFIG, bands=None).numpy()
     assert ours.shape == theirs.shape == (513, 1 + (samples - 256) // 256)
     np.testing.assert_allclose(ours, theirs, rtol=0, atol=2e-3)
 
@@ -448,3 +453,62 @@ def test_per_speaker_averages_match_jax(tmp_path, monkeypatch):
         '0000': 1.}
     assert port.load.per_speaker_averages(
         'toy', 'valid', config=config).keys() == ours.keys()
+
+
+###############################################################################
+# The JAX package's defaults and parameters
+###############################################################################
+
+
+def test_loudness_default_is_the_band_mean():
+    audio = _speech(4096)
+    theirs = np.asarray(jax_loudness.from_audio(audio))
+    ours = port.preprocess.loudness.from_audio(torch.from_numpy(audio))
+    assert ours.shape == theirs.shape == (1, 1 + (4096 - 256) // 256)
+    np.testing.assert_allclose(ours.numpy(), theirs, rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize('max_harmonics', [None, 2])
+def test_harmonics_viterbi_takes_max_harmonics_from_the_config(
+        max_harmonics, monkeypatch):
+    from test_torch_harmonics import _decode_problem
+
+    spectra, frequencies = _decode_problem()
+    config = CONFIG
+    if max_harmonics is not None:
+        config = CONFIG.replace(MAX_HARMONICS=max_harmonics)
+        monkeypatch.setattr(promonet_tpu, 'MAX_HARMONICS', max_harmonics)
+    theirs = jax_harmonics.viterbi(spectra, frequencies)
+    ours = port.preprocess.harmonics.viterbi(
+        torch.from_numpy(spectra), frequencies, config=config).numpy()
+    assert ours.shape == theirs.shape == (config.MAX_HARMONICS, 40)
+    np.testing.assert_array_equal(ours, theirs)
+    if max_harmonics is None:
+        np.testing.assert_array_equal(port.preprocess.harmonics.viterbi(
+            torch.from_numpy(spectra), frequencies).numpy(), theirs)
+
+
+@pytest.mark.parametrize('fmin,fmax', [(0., None), (50., None), (0., 8000.),
+                                       (80., 7600.)])
+def test_mel_filterbank_band_matches_jax(fmin, fmax):
+    ours = port.ops.mel.mel_filterbank(22050, 1024, 80, fmin, fmax)
+    theirs = np.asarray(jax_mel.mel_filterbank(22050, 1024, 80, fmin, fmax))
+    assert ours.dtype == theirs.dtype == np.float32
+    np.testing.assert_array_equal(ours, theirs)
+    assert np.array_equal(
+        ours, port.ops.mel.mel_filterbank(22050, 1024, 80)) == (
+        (fmin, fmax) == (0., None))
+
+
+@pytest.mark.parametrize('magnitude', [False, True])
+def test_centred_stft_matches_jax(magnitude):
+    audio = _speech(5000)[0]
+    ours = stft.stft(torch.from_numpy(audio), 1024, 256,
+                     window=stft.hann_window(1024), center=True,
+                     magnitude=magnitude).numpy()
+    theirs = np.asarray(jax_stft.stft(
+        jnp.asarray(audio), 1024, 256, window=jax_stft.hann_window(1024),
+        center=True, magnitude=magnitude))
+    assert ours.shape == theirs.shape == (513, 1 + 5000 // 256)
+    np.testing.assert_allclose(ours, theirs, rtol=0,
+                               atol=1e-5 * np.abs(theirs).max())

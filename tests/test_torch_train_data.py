@@ -56,7 +56,7 @@ def corpus(tmp_path_factory):
         CACHE_DIR=root / 'port' / 'cache',
         PARTITIONS_DIR=root / 'assets' / 'partitions',
         AUGMENT_DIR=root / 'port' / 'augmentations',
-        CHECKPOINTS_DIR=root / 'checkpoints')
+        CHECKPOINTS_DIR=root / 'checkpoints', RUNS_DIR=root / 'port' / 'runs')
     port.data.synthetic.create(
         **SHAPE, preprocess=False, config=config, device='cpu')
     shutil.copytree(root / 'port' / 'cache', root / 'jax' / 'cache')

@@ -3,7 +3,8 @@ command line, and what does not train.
 
 A port corpus (2 speakers x 4 utterances x 0.5 s, augmented, with seeded
 extractors) and the narrow configuration of `test_torch_train.py`,
-trained on the CPU for a few steps. TensorBoard is left out (its import
+trained on the CPU for a few steps, and resumed from the JAX trainer's
+checkpoints in the run directory. TensorBoard is left out (its import
 brings TensorFlow into the process where it is installed, seconds for
 nothing these tests read); `test_log_writes_tensorboard_where_it_imports`
 holds that path with a stand-in writer.
@@ -127,6 +128,32 @@ def test_train_writes_its_run_and_resumes(corpus, tmp_path):
     discriminator = port.utils.checkpoint.load(
         directory / 'discriminator-00000004.pt')
     assert discriminator['optimizer']['step'] == 4
+
+
+def test_train_resumes_from_a_jax_checkpoint_in_its_directory(
+        corpus, tmp_path):
+    """A run directory holding the JAX trainer's generator and
+    discriminator checkpoints (orbax directories) resumes from them, and
+    the port's own checkpoint pruning leaves them"""
+    from promonet_tpu.train import core as jax_core
+
+    from test_torch_train import _jax_steps
+
+    states, _ = _jax_steps('float32', 0)
+    directory = tmp_path / 'run'
+    jax_core.save_checkpoint(directory, states[0], 5, 1)
+    assert port.utils.checkpoint.latest_path(directory) == \
+        directory / 'generator-00000005'
+    steps = []
+    port.train(directory, 'synthetic', steps=6, config=corpus, device='cpu',
+               callback=lambda step, metrics: steps.append(step))
+    assert steps == [5]
+    payload = port.utils.checkpoint.load(directory / 'generator-00000006.pt')
+    assert payload['step'] == 6 and payload['optimizer']['step'] == 1
+    assert port.utils.checkpoint.latest_path(directory) == \
+        directory / 'generator-00000006.pt'
+    assert all(port.utils.checkpoint.is_orbax(directory / name) for name in (
+        'generator-00000005', 'discriminator-00000005'))
 
 
 def test_spectrogram_only_run_validates_its_mels(corpus, tmp_path):

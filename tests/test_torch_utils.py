@@ -8,7 +8,8 @@ JAX requester pauses a port trainer and a port requester a JAX trainer,
 on one directory. Threads stand in for the trainer; every wait polls
 with a generous deadline, so six test workers on one machine cannot
 make it race. The notification tests never reach the network: the
-webhook's `urlopen` is replaced.
+webhook's `urlopen` is replaced. `data.augment.datasets` and
+`data.preprocess.datasets` report as the JAX package's do.
 """
 import json
 import os
@@ -300,6 +301,41 @@ def test_notify_swallows_log_and_webhook_errors(tmp_path, monkeypatch):
         return 'ran'
 
     assert job(config=config) == 'ran'
+
+
+@pytest.mark.parametrize('job', ['augment', 'preprocess'])
+def test_dataset_steps_are_notified(config, job, monkeypatch):
+    """`data.augment.datasets` and `data.preprocess.datasets` report their
+    start and completion, or failure, to the log and the webhook, as the
+    JAX package's do"""
+    import urllib.request
+
+    posts = []
+    monkeypatch.setattr(
+        urllib.request, 'urlopen',
+        lambda request, timeout: posts.append(json.loads(request.data)))
+    monkeypatch.setenv('PROMONET_NOTIFY_URL', 'http://localhost:9/hook')
+    run = getattr(port.data, job).datasets
+    config = config.replace(
+        CACHE_DIR=config.RUNS_DIR.parent / 'cache',
+        AUGMENT_DIR=config.RUNS_DIR.parent / 'augmentations')
+    # An empty corpus: nothing to do
+    (config.CACHE_DIR / 'empty').mkdir(parents=True)
+    kwargs = {} if job == 'augment' else dict(
+        features=('loudness',), device='cpu')
+    run(['empty'], config=config, **kwargs)
+    # A wav that does not decode
+    (config.CACHE_DIR / 'broken' / '0000').mkdir(parents=True)
+    (config.CACHE_DIR / 'broken' / '0000' / '000000-100.wav').write_bytes(
+        b'RIFF')
+    with pytest.raises(Exception):
+        run(['broken'], config=config, **kwargs)
+    records = _records(config)
+    assert [(r['job'], r['status']) for r in records] == [
+        (job, 'started'), (job, 'completed'), (job, 'started'),
+        (job, 'failed')]
+    assert posts == records
+    assert getattr(promonet_tpu.data, job).datasets.__wrapped__
 
 
 def test_train_and_evaluate_are_notified():
