@@ -664,13 +664,24 @@ def correlation(a, b):
     return float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
 
 
+def device_events(torch, events):
+    """The profiler's events that ran on the card: kernels, copies and
+    fills, not the annotations of host ranges"""
+    return [event for event in events
+            if event.device_type == torch.autograd.DeviceType.CUDA and
+            not event.is_user_annotation]
+
+
 def device_busy(torch, function, top=0):
     """Kernels and device time of one function() call under torch.profiler
 
     Returns {'wall_ms', 'kernels', 'device_busy_ms'}: the host time of the
     profiled call (the profiler's own cost included), the count of device
     events (kernels, copies, fills) and the sum of their durations; the
-    last two are None where the profiler recorded no device event. With
+    last two are None where the profiler recorded no device event. The
+    profiler mirrors each host range (the program's `promonet.*` spans)
+    on the device's timeline as a user annotation; those are not device
+    work and are left out (`device_events`). With
     `top`, also 'top_kernels': the `top` device events by summed time, as
     [name, count, ms].
     """
@@ -682,8 +693,7 @@ def device_busy(torch, function, top=0):
         function()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    events = [event for event in profile.events()
-              if event.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(torch, profile.events())
     result = {
         'wall_ms': wall * 1e3,
         'kernels': len(events) if events else None,

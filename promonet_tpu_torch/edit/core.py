@@ -5,7 +5,9 @@ The stretch is constant-ratio, or PPG-aware: `stretch_unvoiced=False` or
 `stretch_silence=False` exempt those frames, and the variable-rate grid
 is then built on the host from the PPG (`_selective_grid`), because it
 decides the output length. The `from_file*` functions read and write the
-feature files of `preprocess.save`, and edit on `device`.
+feature files of `preprocess.save`, and edit on `device`. Each call of
+`from_features` or `from_padded_features` is the span `edit`
+(`utils.timer.span`).
 """
 import math
 from typing import Optional
@@ -20,6 +22,7 @@ from .. import load
 from ..data import bucket_frames
 from ..preprocess.ppg import (
     PHONEME_TO_INDEX_MAPPING, PHONEMES, SILENCE, VOICED)
+from ..utils import timer
 from . import grid as grid_module
 
 
@@ -55,43 +58,44 @@ def from_features(
         edited loudness, pitch, periodicity and ppg as float32 tensors on
         the device of the inputs (+ the grid if return_grid)
     """
-    config = config_module.default() if config is None else config
-    loudness, pitch, periodicity, ppg = (
-        torch.as_tensor(np.asarray(x, np.float32))
-        if not isinstance(x, torch.Tensor) else x.float()
-        for x in (loudness, pitch, periodicity, ppg))
-    grid = None
-    shift_ratio = (
-        convert.cents_to_ratio(pitch_shift_cents)
-        if pitch_shift_cents is not None else 1.)
-    scale_db = loudness_scale_db if loudness_scale_db is not None else 0.
+    with timer.span('edit'):
+        config = config_module.default() if config is None else config
+        loudness, pitch, periodicity, ppg = (
+            torch.as_tensor(np.asarray(x, np.float32))
+            if not isinstance(x, torch.Tensor) else x.float()
+            for x in (loudness, pitch, periodicity, ppg))
+        grid = None
+        shift_ratio = (
+            convert.cents_to_ratio(pitch_shift_cents)
+            if pitch_shift_cents is not None else 1.)
+        scale_db = loudness_scale_db if loudness_scale_db is not None else 0.
 
-    if time_stretch_ratio is not None:
-        if stretch_unvoiced and stretch_silence:
-            grid = grid_module.constant(ppg, time_stretch_ratio)
-        else:
-            grid = torch.from_numpy(_selective_grid(
-                ppg.detach().cpu().numpy(),
-                time_stretch_ratio,
-                stretch_unvoiced,
-                stretch_silence)).to(ppg.device)
-        pitch = 2 ** grid_module.sample(torch.log2(pitch), grid)
-        periodicity = grid_module.sample(periodicity, grid)
-        loudness = grid_module.sample(loudness, grid)
-        ppg = grid_module.sample(ppg, grid, config.PPG_INTERP_METHOD)
-    if time_stretch_ratio is not None or pitch_shift_cents is not None \
-            or loudness_scale_db is not None:
-        # The JAX package rounds both amounts to float32 scalars
-        pitch = pitch * torch.tensor(
-            shift_ratio, dtype=torch.float32, device=pitch.device)
-        if pitch_shift_cents is not None:
-            pitch = torch.clamp(pitch, config.FMIN, config.FMAX)
-        loudness = loudness + torch.tensor(
-            scale_db, dtype=torch.float32, device=loudness.device)
+        if time_stretch_ratio is not None:
+            if stretch_unvoiced and stretch_silence:
+                grid = grid_module.constant(ppg, time_stretch_ratio)
+            else:
+                grid = torch.from_numpy(_selective_grid(
+                    ppg.detach().cpu().numpy(),
+                    time_stretch_ratio,
+                    stretch_unvoiced,
+                    stretch_silence)).to(ppg.device)
+            pitch = 2 ** grid_module.sample(torch.log2(pitch), grid)
+            periodicity = grid_module.sample(periodicity, grid)
+            loudness = grid_module.sample(loudness, grid)
+            ppg = grid_module.sample(ppg, grid, config.PPG_INTERP_METHOD)
+        if time_stretch_ratio is not None or pitch_shift_cents is not None \
+                or loudness_scale_db is not None:
+            # The JAX package rounds both amounts to float32 scalars
+            pitch = pitch * torch.tensor(
+                shift_ratio, dtype=torch.float32, device=pitch.device)
+            if pitch_shift_cents is not None:
+                pitch = torch.clamp(pitch, config.FMIN, config.FMAX)
+            loudness = loudness + torch.tensor(
+                scale_db, dtype=torch.float32, device=loudness.device)
 
-    if return_grid:
-        return loudness, pitch, periodicity, ppg, grid
-    return loudness, pitch, periodicity, ppg
+        if return_grid:
+            return loudness, pitch, periodicity, ppg, grid
+        return loudness, pitch, periodicity, ppg
 
 
 def from_padded_features(
@@ -119,37 +123,38 @@ def from_padded_features(
         (config.INFERENCE_FRAME_BUCKETS), and out_frames, the output's
         true frame count
     """
-    config = config_module.default() if config is None else config
-    device = pitch.device
-    shift_ratio = torch.tensor(
-        convert.cents_to_ratio(pitch_shift_cents)
-        if pitch_shift_cents is not None else 1.,
-        dtype=torch.float32, device=device)
-    scale_db = torch.tensor(
-        loudness_scale_db if loudness_scale_db is not None else 0.,
-        dtype=torch.float32, device=device)
-    if time_stretch_ratio is None:
-        if pitch_shift_cents is None and loudness_scale_db is None:
-            return loudness, pitch, periodicity, ppg, frames
-        pitch = pitch * shift_ratio
+    with timer.span('edit'):
+        config = config_module.default() if config is None else config
+        device = pitch.device
+        shift_ratio = torch.tensor(
+            convert.cents_to_ratio(pitch_shift_cents)
+            if pitch_shift_cents is not None else 1.,
+            dtype=torch.float32, device=device)
+        scale_db = torch.tensor(
+            loudness_scale_db if loudness_scale_db is not None else 0.,
+            dtype=torch.float32, device=device)
+        if time_stretch_ratio is None:
+            if pitch_shift_cents is None and loudness_scale_db is None:
+                return loudness, pitch, periodicity, ppg, frames
+            pitch = pitch * shift_ratio
+            if pitch_shift_cents is not None:
+                pitch = torch.clamp(pitch, config.FMIN, config.FMAX)
+            return loudness + scale_db, pitch, periodicity, ppg, frames
+
+        out_frames = int(round(frames / time_stretch_ratio))
+        bucket_out = bucket_frames(out_frames, config.INFERENCE_FRAME_BUCKETS)
+        step = (frames - 1) / (out_frames - 1) if out_frames > 1 else 0.
+        grid = torch.arange(bucket_out, dtype=torch.float32, device=device) * \
+            torch.tensor(step, dtype=torch.float32, device=device)
+        pitch = 2 ** grid_module.sample(torch.log2(pitch), grid) * shift_ratio
         if pitch_shift_cents is not None:
             pitch = torch.clamp(pitch, config.FMIN, config.FMAX)
-        return loudness + scale_db, pitch, periodicity, ppg, frames
-
-    out_frames = int(round(frames / time_stretch_ratio))
-    bucket_out = bucket_frames(out_frames, config.INFERENCE_FRAME_BUCKETS)
-    step = (frames - 1) / (out_frames - 1) if out_frames > 1 else 0.
-    grid = torch.arange(bucket_out, dtype=torch.float32, device=device) * \
-        torch.tensor(step, dtype=torch.float32, device=device)
-    pitch = 2 ** grid_module.sample(torch.log2(pitch), grid) * shift_ratio
-    if pitch_shift_cents is not None:
-        pitch = torch.clamp(pitch, config.FMIN, config.FMAX)
-    return (
-        grid_module.sample(loudness, grid) + scale_db,
-        pitch,
-        grid_module.sample(periodicity, grid),
-        grid_module.sample(ppg, grid, config.PPG_INTERP_METHOD),
-        out_frames)
+        return (
+            grid_module.sample(loudness, grid) + scale_db,
+            pitch,
+            grid_module.sample(periodicity, grid),
+            grid_module.sample(ppg, grid, config.PPG_INTERP_METHOD),
+            out_frames)
 
 
 def from_file(

@@ -16,6 +16,7 @@ from torch import nn
 from .. import config as config_module
 from .. import load
 from ..ops import mel as mel_ops, sparse
+from ..utils import timer
 from .fargan import FARGAN
 from .hifigan import HiFiGAN
 from .modules import Dense
@@ -147,7 +148,8 @@ class Generator(BaseGenerator):
         return_states=False,
         train=False,
         previous_samples=None,
-        noise=None
+        noise=None,
+        true_frames=None
     ):
         """
         Arguments
@@ -172,23 +174,35 @@ class Generator(BaseGenerator):
             noise: FARGAN's training noise source (`models.fargan.Uniform`
                 or a callable like it), read with train only; None adds
                 no noise
+            true_frames: how many of the B x T frames are real input, not
+                padding or repeated rows; None: all of them. It only
+                counts, for the `vocoder` span
 
         Returns
             audio: (B, 1, T * HOPSIZE), float32 [, FARGAN's final carry]
+
+        The backbone's part, after the features are assembled, is the span
+        `vocoder` (`utils.timer.span`), which counts `frames` (B x T) and
+        `true_frames`.
         """
         features = self.prepare_features(loudness, pitch, periodicity, ppg)
         global_features = self.prepare_global_features(
             speakers, spectral_balance_ratios, loudness_ratios)
-        if self.config.MODEL == 'fargan':
-            out = self.backbone(
-                features, global_features, self.dtype,
-                initial_states=initial_states, return_states=return_states,
-                previous_samples=previous_samples, train=train, noise=noise)
-            if return_states:
-                return out[0].transpose(1, 2), out[1]
-            return out.transpose(1, 2)
-        audio = self.backbone_forward(features, global_features, train)
-        return audio.transpose(1, 2)
+        frames = features.shape[0] * features.shape[1]
+        with timer.span('vocoder', frames=frames, true_frames=(
+                frames if true_frames is None else true_frames)):
+            if self.config.MODEL == 'fargan':
+                out = self.backbone(
+                    features, global_features, self.dtype,
+                    initial_states=initial_states,
+                    return_states=return_states,
+                    previous_samples=previous_samples, train=train,
+                    noise=noise)
+                if return_states:
+                    return out[0].transpose(1, 2), out[1]
+                return out.transpose(1, 2)
+            audio = self.backbone_forward(features, global_features, train)
+            return audio.transpose(1, 2)
 
     def prepare_features(self, loudness, pitch, periodicity, ppg):
         """Assemble the (B, T, NUM_FEATURES) network input"""

@@ -29,6 +29,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils import timer
 from . import _build
 
 
@@ -243,24 +244,29 @@ def fused_block(x, weights, biases, dilations, slope, tiles=None):
 
     Returns
         (B, T, C) in x's dtype
+
+    A call is the span `resblock` (`utils.timer.span`).
     """
-    if x.device.type == 'cpu' and not isinstance(weights, Packed):
-        return reference_block(x, weights, biases, dilations, slope, x.dtype)
-    if not isinstance(weights, Packed):
-        if x.device.type != 'cuda':
-            raise ValueError(f'No residual block for device {x.device}')
-        if weights.dim() != 4 or tuple(biases.shape) != (
-                weights.shape[0], weights.shape[3]):
-            raise ValueError(
-                f'Weights of shape {tuple(weights.shape)} and biases of '
-                f'shape {tuple(biases.shape)} do not fit')
-        if biases.device != weights.device:
-            raise ValueError(
-                f'Block parameters on {weights.device} and {biases.device}')
-        weights = pack_weights(weights, biases)
-    return resblock_op(
-        x, weights.tensor, weights.biases, weights.channels,
-        list(dilations), float(slope), tiles or 0)
+    with timer.span('resblock'):
+        if x.device.type == 'cpu' and not isinstance(weights, Packed):
+            return reference_block(
+                x, weights, biases, dilations, slope, x.dtype)
+        if not isinstance(weights, Packed):
+            if x.device.type != 'cuda':
+                raise ValueError(f'No residual block for device {x.device}')
+            if weights.dim() != 4 or tuple(biases.shape) != (
+                    weights.shape[0], weights.shape[3]):
+                raise ValueError(
+                    f'Weights of shape {tuple(weights.shape)} and biases of '
+                    f'shape {tuple(biases.shape)} do not fit')
+            if biases.device != weights.device:
+                raise ValueError(
+                    f'Block parameters on {weights.device} and '
+                    f'{biases.device}')
+            weights = pack_weights(weights, biases)
+        return resblock_op(
+            x, weights.tensor, weights.biases, weights.channels,
+            list(dilations), float(slope), tiles or 0)
 
 
 # Calls of the CUDA path; each is one C call that launches

@@ -29,6 +29,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..utils import timer
 from . import _build
 
 NEG_INF = -1e30
@@ -199,17 +200,21 @@ def decode(observation, transition, initial):
 
     Returns
         path: (T,) or (B, T) int32 state indices
+
+    A call is the span `viterbi.decode` (`utils.timer.span`).
     """
-    if observation.device.type == 'cpu':
-        dense = transition.dense if isinstance(transition, Band) \
-            else transition
-        if observation.dim() == 3:
-            return torch.stack([
-                backtrace_plain(*forward_plain(sequence, dense, initial))
-                for sequence in observation])
-        return backtrace_plain(*forward_plain(observation, dense, initial))
-    if observation.device.type == 'cuda':
-        return _decode_cuda(observation, transition, initial)
+    with timer.span('viterbi.decode'):
+        if observation.device.type == 'cpu':
+            dense = transition.dense if isinstance(transition, Band) \
+                else transition
+            if observation.dim() == 3:
+                return torch.stack([
+                    backtrace_plain(*forward_plain(sequence, dense, initial))
+                    for sequence in observation])
+            return backtrace_plain(
+                *forward_plain(observation, dense, initial))
+        if observation.device.type == 'cuda':
+            return _decode_cuda(observation, transition, initial)
     raise ValueError(f'No Viterbi decode for device {observation.device}')
 
 
@@ -427,18 +432,22 @@ def decode_logfreq(observation, frequencies, initial, locality=3.5):
 
     Returns
         path: (T,) or (B, T) int32 state indices
+
+    A call is the span `viterbi.decode_logfreq`.
     """
-    if observation.device.type == 'cpu':
-        transition = logfreq_transition_dense(frequencies, locality)
-        if observation.dim() == 3:
-            return torch.stack([
-                backtrace_plain(*forward_plain(sequence, transition, initial))
-                for sequence in observation])
-        return backtrace_plain(
-            *forward_plain(observation, transition, initial))
-    if observation.device.type == 'cuda':
-        return _decode_logfreq_cuda(
-            observation, frequencies, initial, locality)
+    with timer.span('viterbi.decode_logfreq'):
+        if observation.device.type == 'cpu':
+            transition = logfreq_transition_dense(frequencies, locality)
+            if observation.dim() == 3:
+                return torch.stack([
+                    backtrace_plain(
+                        *forward_plain(sequence, transition, initial))
+                    for sequence in observation])
+            return backtrace_plain(
+                *forward_plain(observation, transition, initial))
+        if observation.device.type == 'cuda':
+            return _decode_logfreq_cuda(
+                observation, frequencies, initial, locality)
     raise ValueError(f'No Viterbi decode for device {observation.device}')
 
 

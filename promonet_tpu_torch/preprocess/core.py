@@ -19,6 +19,7 @@ from .. import device as device_module
 from .. import load
 from ..data import bucket_frames
 from ..utils import audio as audio_module
+from ..utils import timer
 from . import harmonics as harmonics_module
 from . import loudness as loudness_module
 from . import pitch as pitch_module
@@ -73,35 +74,37 @@ def from_audio(
         harmonics (max_harmonics, T) in Hz, speaker
         (WAVLM_EMBEDDING_CHANNELS,), as float32 tensors on `device`
     """
-    device = device_module.resolve(device)
-    config = config_module.default() if config is None else config
-    if loudness_bands == 'default':
-        loudness_bands = config.LOUDNESS_BANDS
-    unknown = set(features) - set(FEATURES)
-    if unknown:
-        raise NotImplementedError(f'Features {sorted(unknown)} are not ported')
+    with timer.span('preprocess'):
+        device = device_module.resolve(device)
+        config = config_module.default() if config is None else config
+        if loudness_bands == 'default':
+            loudness_bands = config.LOUDNESS_BANDS
+        unknown = set(features) - set(FEATURES)
+        if unknown:
+            raise NotImplementedError(
+                f'Features {sorted(unknown)} are not ported')
 
-    if sample_rate is not None and sample_rate != config.SAMPLE_RATE:
-        audio = audio_module.resample(
-            _to_numpy(audio), sample_rate, config.SAMPLE_RATE)
-    frames = audio.shape[-1] // config.HOPSIZE
+        if sample_rate is not None and sample_rate != config.SAMPLE_RATE:
+            audio = audio_module.resample(
+                _to_numpy(audio), sample_rate, config.SAMPLE_RATE)
+        frames = audio.shape[-1] // config.HOPSIZE
 
-    out = {}
-    if any(name in features for name in PADDED):
-        samples = bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS) * \
-            config.HOPSIZE
-        out = extract_padded(
-            pad(audio, samples, device), pitch_model, ppg_model, features,
-            loudness_bands, config)
-        out = {name: value[..., :frames] for name, value in out.items()}
-    if 'harmonics' in features:
-        out['harmonics'] = harmonics_module.from_audio(
-            _to_numpy(audio), max_harmonics=max_harmonics, config=config,
-            device=device)
-    if 'speaker' in features:
-        out['speaker'] = speaker_module.from_audio(
-            audio, speaker_model, config=config, device=device)
-    return tuple(out[name] for name in FEATURES if name in features)
+        out = {}
+        if any(name in features for name in PADDED):
+            samples = bucket_frames(
+                frames, config.INFERENCE_FRAME_BUCKETS) * config.HOPSIZE
+            out = extract_padded(
+                pad(audio, samples, device), pitch_model, ppg_model,
+                features, loudness_bands, config)
+            out = {name: value[..., :frames] for name, value in out.items()}
+        if 'harmonics' in features:
+            out['harmonics'] = harmonics_module.from_audio(
+                _to_numpy(audio), max_harmonics=max_harmonics, config=config,
+                device=device)
+        if 'speaker' in features:
+            out['speaker'] = speaker_module.from_audio(
+                audio, speaker_model, config=config, device=device)
+        return tuple(out[name] for name in FEATURES if name in features)
 
 
 def from_file(
@@ -211,28 +214,35 @@ def extract_padded(
 
     Returns {name: tensor}. Pitch is interpolated through unvoiced frames
     only when it is not Viterbi-decoded, as in the JAX package's fused
-    extractor.
+    extractor. The stages are the spans `preprocess.loudness`,
+    `preprocess.pitch` (the pitch front end, its decode and refinement)
+    and `preprocess.ppg` (the spectrogram, the mels and the PPG encoder).
     """
     out = {}
     with torch.no_grad():
         if 'loudness' in features:
-            out['loudness'] = loudness_module.from_audio(
-                audio, config, loudness_bands)
+            with timer.span('preprocess.loudness'):
+                out['loudness'] = loudness_module.from_audio(
+                    audio, config, loudness_bands)
         if 'pitch' in features or 'periodicity' in features:
             if config.VITERBI_DECODE_PITCH:
                 decoder, interp_at = 'viterbi', None
             else:
                 decoder, interp_at = 'argmax', config.VOICING_THRESHOLD
-            out['pitch'], out['periodicity'] = pitch_module.estimate(
-                audio, pitch_model, config, decoder, interp_at)
+            with timer.span('preprocess.pitch'):
+                out['pitch'], out['periodicity'] = pitch_module.estimate(
+                    audio, pitch_model, config, decoder, interp_at)
         if 'spectrogram' in features or 'ppg' in features:
-            spectrogram = spectrogram_module.from_audio(audio[None], config)[0]
-            if 'spectrogram' in features:
-                out['spectrogram'] = spectrogram
-        if 'ppg' in features:
-            mels = spectrogram_module.linear_to_mel(spectrogram, config)
-            log_probs = ppg_model(mels.transpose(0, 1)[None])
-            out['ppg'] = torch.exp(log_probs[0].transpose(0, 1))
+            with timer.span('preprocess.ppg'):
+                spectrogram = spectrogram_module.from_audio(
+                    audio[None], config)[0]
+                if 'spectrogram' in features:
+                    out['spectrogram'] = spectrogram
+                if 'ppg' in features:
+                    mels = spectrogram_module.linear_to_mel(
+                        spectrogram, config)
+                    log_probs = ppg_model(mels.transpose(0, 1)[None])
+                    out['ppg'] = torch.exp(log_probs[0].transpose(0, 1))
     return out
 
 

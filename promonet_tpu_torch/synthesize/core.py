@@ -8,6 +8,9 @@ padded by replicating their last frame, and returns the bucket's audio
 untrimmed. `from_edited_audio` is the whole editing chain in one call,
 with every intermediate left on the device at its bucket's length. The
 `from_file*` functions read features from disk and write wav files.
+`generate` (so `from_features`) and `from_features_batched` are each the
+span `synthesize` (`utils.timer.span`); they give the generator the true
+frames among the padded ones for its `vocoder` span.
 """
 import numpy as np
 import torch
@@ -18,6 +21,7 @@ from .. import load
 from .. import preprocess as preprocess_module
 from ..data import bucket_frames
 from ..utils import audio as audio_module
+from ..utils import timer
 
 
 def from_features(
@@ -163,7 +167,17 @@ def from_features_batched(
         audio: (len(feature_sets), 1, bucket * HOPSIZE) float32 tensor on
         `device`, untrimmed
     """
-    device = device_module.resolve(device)
+    with timer.span('synthesize'):
+        return _batched(
+            feature_sets, generator, speakers, spectral_balance_ratios,
+            loudness_ratios, batch_size, device_module.resolve(device))
+
+
+def _batched(
+    feature_sets, generator, speakers, spectral_balance_ratios,
+    loudness_ratios, batch_size, device
+):
+    """`from_features_batched` on a resolved device"""
     config = generator.config
     count = len(feature_sets)
     if speakers is None:
@@ -173,6 +187,7 @@ def from_features_batched(
     if loudness_ratios is None:
         loudness_ratios = [1.] * count
 
+    lengths = [values[1].shape[-1] for values in feature_sets]
     sets = [
         tuple(_replicate_to_bucket(value, config, device) for value in values)
         for values in feature_sets]
@@ -202,7 +217,8 @@ def from_features_batched(
                 speaker_tensor(
                     [speakers[start + row] for row in rows], config, device),
                 per_row(spectral_balance_ratios, torch.float32),
-                per_row(loudness_ratios, torch.float32))
+                per_row(loudness_ratios, torch.float32),
+                true_frames=sum(lengths[start:start + len(group)]))
             outputs.append(audio[:len(group)])
     return outputs[0] if len(outputs) == 1 else torch.cat(outputs)
 
@@ -323,7 +339,8 @@ def from_edited_audio(
             ppg[None],
             speaker_tensor([speaker], config, device),
             torch.tensor([spectral_balance_ratio], device=device),
-            torch.tensor([loudness_ratio], device=device))
+            torch.tensor([loudness_ratio], device=device),
+            true_frames=out_frames)
     return _as_wire(
         output[0, :, :out_frames * hopsize], output_dtype).cpu().numpy()
 
@@ -341,30 +358,34 @@ def generate(
     output_dtype='float32'
 ):
     """Generate speech with padding to bucketed lengths; numpy (1, samples)"""
-    device = device_module.resolve(device)
-    config = generator.config
-    frames = pitch.shape[-1]
-    bucket = bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS)
+    with timer.span('synthesize'):
+        device = device_module.resolve(device)
+        config = generator.config
+        frames = pitch.shape[-1]
+        bucket = bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS)
 
-    def pad(x, nan=None):
-        x = torch.as_tensor(np.asarray(x, np.float32)) \
-            if not isinstance(x, torch.Tensor) else x.float()
-        x = x.to(device)
-        if nan is not None:
-            x = torch.nan_to_num(x, nan=nan)
-        return torch.nn.functional.pad(x, (0, bucket - x.shape[-1]))[None]
+        def pad(x, nan=None):
+            x = torch.as_tensor(np.asarray(x, np.float32)) \
+                if not isinstance(x, torch.Tensor) else x.float()
+            x = x.to(device)
+            if nan is not None:
+                x = torch.nan_to_num(x, nan=nan)
+            return torch.nn.functional.pad(
+                x, (0, bucket - x.shape[-1]))[None]
 
-    with torch.no_grad():
-        audio = generator(
-            pad(loudness),
-            pad(pitch.reshape(-1), nan=100.),
-            pad(periodicity.reshape(-1)),
-            pad(ppg),
-            speaker_tensor([speaker], config, device),
-            torch.tensor([spectral_balance_ratio], device=device),
-            torch.tensor([loudness_ratio], device=device))
-    return _as_wire(
-        audio[0, :, :frames * config.HOPSIZE], output_dtype).cpu().numpy()
+        with torch.no_grad():
+            audio = generator(
+                pad(loudness),
+                pad(pitch.reshape(-1), nan=100.),
+                pad(periodicity.reshape(-1)),
+                pad(ppg),
+                speaker_tensor([speaker], config, device),
+                torch.tensor([spectral_balance_ratio], device=device),
+                torch.tensor([loudness_ratio], device=device),
+                true_frames=frames)
+        return _as_wire(
+            audio[0, :, :frames * config.HOPSIZE],
+            output_dtype).cpu().numpy()
 
 
 def speaker_tensor(speakers, config, device):

@@ -98,6 +98,7 @@ from ..utils import checkpoint as checkpoint_module
 from ..utils import cli
 from ..utils import log
 from ..utils import pause
+from ..utils import timer
 from ..utils.notify import notify
 from . import loss as loss_module
 
@@ -664,91 +665,113 @@ def train_step(state, batch, discriminate=True, adversarial=True,
     noise: FARGAN's training noise source (`models.fargan.Uniform` or a
         callable like it); None draws from `state.rng`. Other backbones
         take none.
+
+    The step is the span `train.step` (`utils.timer.span`) and its phases
+    the spans `train.generator` (the generator's forward pass),
+    `train.discriminator` (the discriminators' update), `train.losses`
+    (the generator's losses through the updated discriminators),
+    `train.backward` (the generator's gradients and their all-reduce) and
+    `train.optimizer` (the gradients' extrema, the clip and the
+    optimizer's step).
     """
+    with timer.span('train.step'):
+        return _train_step(state, batch, discriminate, adversarial, noise)
+
+
+def _train_step(state, batch, discriminate, adversarial, noise):
     config = state.config
     loss = loss_module
     discriminator = state.discriminator
     audio = batch['audio']
 
-    kwargs = {'train': True}
-    previous_samples = previous_samples_of(batch, config)
-    if previous_samples is not None:
-        kwargs.update(
-            previous_samples=previous_samples,
-            noise=fargan.Uniform(state.rng) if noise is None else noise)
-    generated = functional_call(
-        state.generator, state.effective(), generator_args(batch, config),
-        kwargs)
-    if previous_samples is not None:
-        # The history is given, not generated: the losses see it as it is
-        generated = torch.cat(
-            (previous_samples, generated[..., previous_samples.shape[-1]:]),
-            -1)
+    with timer.span('train.generator'):
+        kwargs = {'train': True}
+        previous_samples = previous_samples_of(batch, config)
+        if previous_samples is not None:
+            kwargs.update(
+                previous_samples=previous_samples,
+                noise=fargan.Uniform(state.rng) if noise is None else noise)
+        generated = functional_call(
+            state.generator, state.effective(),
+            generator_args(batch, config), kwargs)
+        if previous_samples is not None:
+            # The history is given, not generated: the losses see it as
+            # it is
+            generated = torch.cat(
+                (previous_samples,
+                 generated[..., previous_samples.shape[-1]:]), -1)
     metrics = {}
 
     # Discriminators, against the detached output
     if discriminate:
-        real_logits, fake_logits, _, _ = discriminator(
-            audio, generated.detach())
-        total, real_losses, fake_losses = loss.discriminator(
-            real_logits, fake_logits, config)
-        parameters = list(discriminator.parameters())
-        _apply(
-            state.discriminator_optimizer, parameters,
-            parallel.all_reduce_mean(
-                _gradients(total, parameters), state.mesh))
-        metrics['loss/discriminator/total'] = total.detach()
-        for i, value in enumerate(real_losses):
-            metrics[f'loss/discriminator/real-{i:02d}'] = value.detach()
-        for i, value in enumerate(fake_losses):
-            metrics[f'loss/discriminator/fake-{i:02d}'] = value.detach()
+        with timer.span('train.discriminator'):
+            real_logits, fake_logits, _, _ = discriminator(
+                audio, generated.detach())
+            total, real_losses, fake_losses = loss.discriminator(
+                real_logits, fake_logits, config)
+            parameters = list(discriminator.parameters())
+            _apply(
+                state.discriminator_optimizer, parameters,
+                parallel.all_reduce_mean(
+                    _gradients(total, parameters), state.mesh))
+            metrics['loss/discriminator/total'] = total.detach()
+            for i, value in enumerate(real_losses):
+                metrics[f'loss/discriminator/real-{i:02d}'] = value.detach()
+            for i, value in enumerate(fake_losses):
+                metrics[f'loss/discriminator/fake-{i:02d}'] = value.detach()
 
     # Generator, through the updated discriminators
-    total = torch.zeros((), device=audio.device)
-    aux = {}
-    if config.MEL_LOSS:
-        mel_loss = loss.mel(batch['spectrograms'], generated, config)
-        total = total + config.MEL_LOSS_WEIGHT * mel_loss
-        aux['loss/generator/mels'] = mel_loss
-    if config.SPECTRAL_CONVERGENCE_LOSS:
-        spectral = loss.multi_resolution_spectral_convergence(
-            generated, audio)
-        total = total + spectral
-        aux['loss/generator/spectral-convergence'] = spectral
-    if config.SIGNAL_LOSS:
-        signal_loss = loss.signal(
-            audio.reshape(audio.shape[0], -1),
-            generated.reshape(generated.shape[0], -1))
-        total = total + config.SIGNAL_LOSS_WEIGHT * signal_loss
-        aux['loss/generator/signal'] = signal_loss
-    if adversarial:
-        _, fake_logits, real_maps, fake_maps = discriminator(audio, generated)
-        feature_matching = loss.feature_matching(real_maps, fake_maps, config)
-        total = total + config.FEATURE_MATCHING_LOSS_WEIGHT * feature_matching
-        adversarial_loss, adversarial_losses = loss.generator(
-            fake_logits, config)
-        total = total + config.ADVERSARIAL_LOSS_WEIGHT * adversarial_loss
-        aux['loss/generator/feature-matching'] = feature_matching
-        for i, value in enumerate(adversarial_losses):
-            aux[f'loss/generator/adversarial-{i:02d}'] = value
+    with timer.span('train.losses'):
+        total = torch.zeros((), device=audio.device)
+        aux = {}
+        if config.MEL_LOSS:
+            mel_loss = loss.mel(batch['spectrograms'], generated, config)
+            total = total + config.MEL_LOSS_WEIGHT * mel_loss
+            aux['loss/generator/mels'] = mel_loss
+        if config.SPECTRAL_CONVERGENCE_LOSS:
+            spectral = loss.multi_resolution_spectral_convergence(
+                generated, audio)
+            total = total + spectral
+            aux['loss/generator/spectral-convergence'] = spectral
+        if config.SIGNAL_LOSS:
+            signal_loss = loss.signal(
+                audio.reshape(audio.shape[0], -1),
+                generated.reshape(generated.shape[0], -1))
+            total = total + config.SIGNAL_LOSS_WEIGHT * signal_loss
+            aux['loss/generator/signal'] = signal_loss
+        if adversarial:
+            _, fake_logits, real_maps, fake_maps = discriminator(
+                audio, generated)
+            feature_matching = loss.feature_matching(
+                real_maps, fake_maps, config)
+            total = total + \
+                config.FEATURE_MATCHING_LOSS_WEIGHT * feature_matching
+            adversarial_loss, adversarial_losses = loss.generator(
+                fake_logits, config)
+            total = total + config.ADVERSARIAL_LOSS_WEIGHT * adversarial_loss
+            aux['loss/generator/feature-matching'] = feature_matching
+            for i, value in enumerate(adversarial_losses):
+                aux[f'loss/generator/adversarial-{i:02d}'] = value
 
     parameters = [state.trainable[name] for name in state.names]
-    gradients = parallel.all_reduce_mean(
-        _gradients(total, parameters), state.mesh)
-    gradient_max = torch.max(torch.stack([g.max() for g in gradients]))
-    gradient_min = torch.min(torch.stack([g.min() for g in gradients]))
-    metrics['gradients/max'] = gradient_max
-    metrics['gradients/min'] = gradient_min
-    if config.GRADIENT_CLIP_GENERATOR is not None:
-        bound = config.GRADIENT_CLIP_GENERATOR
-        over = torch.maximum(gradient_max, -gradient_min) > bound
-        gradients = [
-            torch.where(over, torch.clamp(g, -bound, bound), g)
-            for g in gradients]
-    _apply(state.generator_optimizer, parameters, gradients)
+    with timer.span('train.backward'):
+        gradients = parallel.all_reduce_mean(
+            _gradients(total, parameters), state.mesh)
+    with timer.span('train.optimizer'):
+        gradient_max = torch.max(torch.stack([g.max() for g in gradients]))
+        gradient_min = torch.min(torch.stack([g.min() for g in gradients]))
+        metrics['gradients/max'] = gradient_max
+        metrics['gradients/min'] = gradient_min
+        if config.GRADIENT_CLIP_GENERATOR is not None:
+            bound = config.GRADIENT_CLIP_GENERATOR
+            over = torch.maximum(gradient_max, -gradient_min) > bound
+            gradients = [
+                torch.where(over, torch.clamp(g, -bound, bound), g)
+                for g in gradients]
+        _apply(state.generator_optimizer, parameters, gradients)
 
-    metrics['loss/generator/total'] = total.detach()
-    metrics.update({name: value.detach() for name, value in aux.items()})
+        metrics['loss/generator/total'] = total.detach()
+        metrics.update({name: value.detach() for name, value in aux.items()})
     return metrics
 
 
