@@ -9,7 +9,7 @@ Phases, each printed as one JSON line with the seconds since the start
 (`elapsed_s`); any failure exits non-zero:
 
 1. device: the card's name and power limit.
-2. build: the three CUDA kernels from `promonet_tpu_torch/csrc`, one
+2. build: the four CUDA kernels from `promonet_tpu_torch/csrc`, one
    `nvcc` each, in parallel.
 3. check: each kernel against its plain PyTorch version on the card.
    The residual block (K1) at every (C, k) of the main path, at the
@@ -66,10 +66,18 @@ Phases, each printed as one JSON line with the seconds since the start
    calls per window, frames * HOPSIZE finite samples, interior
    correlation with offline synthesis above 0.9.
 9. FARGAN path (configs/fargan.py, bf16, seeded): synthesize.from_features
-   offline, then synthesize.FARGANStreamer in 32-frame chunks; no kernel
-   launches; the chunked audio held to the offline audio by the bounds
+   offline, then synthesize.FARGANStreamer in 32-frame chunks; no K1-K3
+   launches, one K4 launch a subframe (`k4_launches`, two calls each); the
+   chunked audio held to the offline audio by the bounds
    FARGAN_FIRST_FRAMES_BOUND (first four frames), FARGAN_MAX_ABS_BOUND
-   and FARGAN_CORRELATION_BOUND.
+   and FARGAN_CORRELATION_BOUND. Then K4 against the plain subframe
+   (phase `fargan_kernel`): one more offline synthesis with a forward
+   hook on the subframe, every call's output and states held to
+   `SubframeNetwork.plain` in float32 from the same inputs (relative
+   gaps within FARGAN_K4_OUTPUT_GAP and FARGAN_K4_STATE_GAP), the fed
+   pitch lookback and previous subframe equal to the loop's own
+   samples; K4's device time a launch (profiler), the plain bf16
+   subframe's time a call and K4's bound.
 10. Vocos path (configs/baselines/vocos.py, bf16, seeded): finite audio
    of frames * HOPSIZE samples, no kernel launches.
 11. file path: the 10 s audio as a wav file → preprocess.from_file_to_file
@@ -331,7 +339,8 @@ Phases, each printed as one JSON line with the seconds since the start
    kernel its
    launches (the main path's; K2's other call sites, phases 21, 22, 22b
    and 22c, and K1's in phases 22b and 22c, apart under
-   `launches_by_call_site`), error (for the two decodes the
+   `launches_by_call_site`; K4's, which the main path does not run, those
+   of phase 9's checked synthesis, its other FARGAN calls apart), error (for the two decodes the
    largest difference in state index seen in this run's checks), time,
    plain and library times and
    the card's bound, the seconds of each phase, then the card's name and
@@ -381,6 +390,19 @@ BF16_RTOL = 2. ** -5
 FARGAN_FIRST_FRAMES_BOUND = 2. ** -10
 FARGAN_MAX_ABS_BOUND = 2. ** -8
 FARGAN_CORRELATION_BOUND = 0.9999
+
+# K4 against the plain subframe in float32 from the same inputs: the
+# benchmark's readings of the plain bf16 program against its float32
+# reference over 25 seeds (PERF.md, section 2), as the card tests hold
+# it: every subframe's output and the worst carried state, relative
+FARGAN_K4_OUTPUT_GAP = 0.006
+FARGAN_K4_STATE_GAP = 0.0047
+# Bytes one K4 launch moves a row besides the weights: the conditioning
+# slice, lookback, previous subframe and four states read (bf16), the
+# output and states written (bf16) and the samples (float32), and the
+# next subframe's lookback indices (int64) and samples (float32) read and
+# its lookback and previous subframe written (bf16)
+K4_ROW_BYTES = 6096
 
 # The checkpoints the repository ships, as orbax directories, and the
 # SHA-256 (`tree_digest`) of the tree the JAX package's
@@ -845,15 +867,30 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
     fargan_config = port.config.load(ROOT / 'configs' / 'fargan.py')
     fargan = port.models.init.seeded(
         port.models.Generator(fargan_config), 4).to(device).eval()
+    # K4, FARGAN's subframe as one launch: one a subframe of the bucket
+    from promonet_tpu_torch.ops import fargan as fargan_kernel
+    subframes = fargan.backbone.subframes
+    k4_launches = fargan_kernel.subframe.launches
     offline, offline_seconds, counts = timed_call(
         torch, lambda: port.synthesize.from_features(
             *features, generator=fargan, speaker=3, device=device))
     expect('fargan', counts, {'resblock': 0, 'viterbi': 0,
                               'viterbi_logfreq': 0})
+    k4_offline = fargan_kernel.subframe.launches - k4_launches
     chunk = 32
+    k4_launches = fargan_kernel.subframe.launches
     chunked, chunked_seconds, counts = timed_call(torch, lambda: stream(
         port.synthesize.FARGANStreamer(
             fargan, speaker=3, chunk_frames=chunk, device=device), chunk))
+    k4_chunked = fargan_kernel.subframe.launches - k4_launches
+    k4_expected = (
+        2 * subframes * port.data.bucket_frames(
+            frames, fargan_config.INFERENCE_FRAME_BUCKETS),
+        2 * subframes * chunk * -(-frames // chunk))
+    if (k4_offline, k4_chunked) != k4_expected:
+        raise AssertionError(
+            f'FARGAN K4 launches {(k4_offline, k4_chunked)}, expected '
+            f'{k4_expected}')
     first_chunk = port.synthesize.FARGANStreamer(
         fargan, speaker=3, chunk_frames=chunk, device=device)
     profiled = device_busy(torch, lambda: first_chunk.feed(*(
@@ -870,6 +907,7 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
         chunk_frames=chunk, chunked_ms=chunked_seconds * 1e3,
         ms_per_chunk=chunked_seconds * 1e3 / -(-frames // chunk),
         chunked_launches=counts, profiled_chunk=profiled,
+        k4_launches={'offline': k4_offline, 'chunked': k4_chunked},
         first_4_frames_max_abs_err=float(difference[..., :4 * hopsize].max()),
         max_abs_err=float(difference.max()),
         correlation=correlation(chunked, offline),
@@ -884,6 +922,8 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
             1, frames * hopsize) or not record['finite'] or \
             not record['within_stated_bound']:
         raise AssertionError('FARGAN synthesis is wrong')
+    fargan_kernel_check(torch, port, fargan, features, device,
+                        {'offline': k4_offline, 'chunked': k4_chunked})
 
     # 10. Vocos (configs/baselines/vocos.py, bf16)
     vocos_config = port.config.load(
@@ -974,6 +1014,93 @@ def serving_paths(torch, port, config, device, audio, features, pitch_model,
                 harmonics.shape != (config.MAX_HARMONICS, frames):
             raise AssertionError('file-level entry points are wrong')
     return path_launches
+
+
+def fargan_kernel_check(torch, port, fargan, features, device, call_sites):
+    """K4 against the plain subframe over one offline FARGAN synthesis;
+    keeps its entry of the `kernels` line in MEASURED['k4']"""
+    from promonet_tpu_torch.models import fargan as models
+    from promonet_tpu_torch.ops import fargan as fargan_kernel
+    backbone = fargan.backbone
+    network = backbone.subframe
+    fed, calls = [], []
+    handles = [
+        backbone.register_forward_pre_hook(
+            lambda module, arguments: fed.append(arguments[0])),
+        network.register_forward_hook(
+            lambda module, arguments, output: calls.append(
+                (arguments[:4], output[0], output[1])))]
+    launches = fargan_kernel.subframe.launches
+    try:
+        profiled = device_busy(torch, lambda: port.synthesize.from_features(
+            *features, generator=fargan, speaker=3, device=device), top=8)
+    finally:
+        for handle in handles:
+            handle.remove()
+    launches = fargan_kernel.subframe.launches - launches
+    if len(fed) != 1 or launches != len(calls):
+        raise AssertionError(
+            f'K4: {len(fed)} backbone calls, {launches} launches for '
+            f'{len(calls)} subframes')
+    # The fed history: the loop's own samples at its pitch periods
+    size, history = backbone.subframe_size, backbone.num_previous
+    outputs = torch.cat([call[1] for call in calls], -1).float()
+    samples = torch.cat((
+        torch.zeros((1, history), device=device), outputs), -1)
+    period = torch.clamp(torch.round(fed[0][..., -1]).long(), 1,
+                         history - size - 2)
+    index = models.lookback_index(period, history, size)
+    history_exact = True
+    for step, ((_, lookback, previous, _), _, _) in enumerate(calls):
+        window = samples[:, step * size:step * size + history]
+        history_exact &= bool(
+            torch.equal(lookback.float(), torch.gather(
+                window, 1, index[:, step // backbone.subframes])) and
+            torch.equal(previous.float(), window[:, -size:]))
+    # Every subframe against the plain subframe in float32
+    inputs = [torch.cat([call[0][k] for call in calls]).float()
+              for k in range(3)]
+    states = [torch.cat([call[0][3][k] for call in calls]).float()
+              for k in range(4)]
+    carried = [torch.cat([call[2][k] for call in calls]).float()
+               for k in range(4)]
+    kernel_outputs = torch.cat([call[1] for call in calls]).float()
+    with torch.no_grad():
+        plain, plain_states = network.plain(
+            *inputs, states, torch.float32, None)
+    output_gap = float((kernel_outputs - plain).norm() / plain.norm())
+    state_gap = max(float((state - reference).norm() / reference.norm())
+                    for state, reference in zip(carried, plain_states))
+    max_abs_err = float((kernel_outputs - plain).abs().max())
+    # K4's device time a launch, the plain bf16 subframe's time a call
+    # (host-paced: about 46 launches) on the first subframe's inputs
+    k4 = [(count, ms) for name, count, ms in profiled['top_kernels']
+          if 'fargan_subframe' in name]
+    ms = k4[0][1] / k4[0][0] if k4 else None
+    with torch.no_grad():
+        plain_ms = elapsed_ms(torch, lambda: network.plain(
+            *calls[0][0], torch.bfloat16, None), repeats=20)
+    weights = network.packed().numel()
+    operations, moved = 2. * weights, 2. * weights + K4_ROW_BYTES
+    record = dict(
+        phase='fargan_kernel', subframes=len(calls), launches=launches,
+        history_exact=history_exact, output_gap=output_gap,
+        state_gap=state_gap, max_abs_err=max_abs_err, ms=ms,
+        plain_ms=plain_ms, weights=weights,
+        bound_ms=max(operations / PEAK_BF16, moved / PEAK_BYTES) * 1e3,
+        bound_by='operations' if operations / PEAK_BF16 >
+        moved / PEAK_BYTES else 'bytes', profiled_call=profiled)
+    emit(**record)
+    if not history_exact or output_gap > FARGAN_K4_OUTPUT_GAP or \
+            state_gap > FARGAN_K4_STATE_GAP or ms is None:
+        raise AssertionError('K4 is not the plain subframe')
+    MEASURED['k4'] = dict(
+        name='fargan_subframe', route='cuda',
+        source='promonet_tpu_torch/csrc/fargan_subframe.cu', replaces=None,
+        launches=launches, launches_by_call_site=call_sites,
+        max_abs_err=max_abs_err, output_gap=output_gap, state_gap=state_gap,
+        ms=ms, plain_ms=plain_ms, bound_ms=record['bound_ms'],
+        bound_by=record['bound_by'], library_ms=None)
 
 
 def zeroshot_path(torch, port, device, audio, features, edited, pitch_model,
@@ -3952,7 +4079,8 @@ def main():
 
     # 2. Build
     start = time.perf_counter()
-    reports = _build.build(['resblock', 'viterbi', 'viterbi_logfreq'])
+    reports = _build.build(
+        ['resblock', 'viterbi', 'viterbi_logfreq', 'fargan_subframe'])
     emit(phase='build', seconds=time.perf_counter() - start,
          ptxas={
              kernel: [line.strip() for line in report.splitlines()
@@ -4617,7 +4745,8 @@ def main():
              bound_ms=max(k3_ops / PEAK_FP32, k3_bytes / PEAK_BYTES) * 1e3,
              bound_by='operations' if k3_ops / PEAK_FP32 >
              k3_bytes / PEAK_BYTES else 'bytes',
-             library_ms=None)]
+             library_ms=None),
+        MEASURED['k4']]
     emit(phase='phase_seconds', seconds=dict(PHASE_SECONDS))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)

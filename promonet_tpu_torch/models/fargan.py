@@ -13,17 +13,26 @@ history is float32 and each subframe's samples are rounded to the dtype
 and widened back into it.
 
 Two routes run the frame loop. Inference writes each subframe into one
-preallocated sample buffer. Training (`train=True`) keeps every
+preallocated sample buffer; where its input lies on a CUDA device, in
+bf16, without autograd or noise (`ops.fargan.uses_kernel`), each
+subframe is one launch of kernel K4, the loop's buffers in an
+`ops.fargan.Slots`, and any other runs the plain PyTorch subframe. The
+loop is the span `frame_loop` (`utils.timer.span`), which counts the rows
+times the subframes it ran (`subframes`), those K4 ran (`fused`, from its
+launches) and the rows (`rows`). Training (`train=True`) keeps every
 subframe's output and rolls the history by concatenation, as the JAX
 package's scan does, so that autograd can run back through it; it also
 takes the additive training noise (`additive_noise`) from a noise source
 the caller passes, eleven draws per subframe in the JAX package's order.
 """
+import itertools
 import math
 
 import torch
 from torch import nn
 
+from ..ops import fargan as kernel
+from ..utils import timer
 from .modules import Dense, cast
 
 
@@ -158,10 +167,21 @@ class SubframeNetwork(nn.Module):
         self.skip = Dense(4 * hopsize + 2 * subframe_size, hopsize)
         self.skip_glu = GLU(hopsize)
         self.output = Dense(hopsize, subframe_size)
+        self._packed = None
+
+    def packed(self):
+        """The weights packed for K4 (`ops.fargan.pack_weights`), made
+        once and again when a parameter was written to or moved"""
+        key = tuple(
+            (tensor.device, tensor.data_ptr(), tensor._version)
+            for tensor in itertools.chain(self.parameters(), self.buffers()))
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, kernel.pack_weights(self))
+        return self._packed[1]
 
     def forward(
         self, features, pitch_lookback, previous_subframe, states,
-        dtype=torch.float32, noise=None
+        dtype=torch.float32, noise=None, slots=None, step=None
     ):
         """
         Arguments
@@ -172,11 +192,27 @@ class SubframeNetwork(nn.Module):
             states: (gru1, gru2, gru3, fwconv) recurrent states, in dtype
             noise: None, or the training noise's source (`additive_noise`),
                 drawn NOISE_SITES times in the JAX package's order
+            slots, step: K4's frame loop (`ops.fargan.Slots`) and this
+                subframe's index in it: the call is one launch of K4,
+                which reads its inputs from their slots and writes its
+                results into theirs, with the next subframe's inputs
 
         Returns
             (signal (B, subframe_size) in dtype, states): the GRU states
             are carried without noise, the subframe's input with it
         """
+        if slots is not None:
+            return kernel.subframe(
+                self, features, pitch_lookback, previous_subframe, states,
+                slots, step)
+        return self.plain(
+            features, pitch_lookback, previous_subframe, states, dtype, noise)
+
+    def plain(
+        self, features, pitch_lookback, previous_subframe, states, dtype,
+        noise
+    ):
+        """The subframe in PyTorch operations (`forward`'s arguments)"""
         def noisy(x):
             return x if noise is None else additive_noise(x, noise)
 
@@ -294,10 +330,28 @@ class FARGAN(nn.Module):
             return self._train_loop(
                 cond, lookback, previous, states, dtype, noise,
                 return_states)
+        loop = (self._kernel_loop if kernel.uses_kernel(cond, dtype)
+                else self._plain_loop)
+        with timer.span(
+                'frame_loop', subframes=frames * self.subframes * batch,
+                rows=batch, fused=0) as counts:
+            launches = kernel.subframe.launches
+            samples, states = loop(cond, lookback, previous, states, dtype)
+            if counts is not None:
+                counts['fused'] = (kernel.subframe.launches - launches) * batch
+        audio = samples[:, history:, None]
+        if return_states:
+            return audio, (samples[:, -history:], states)
+        return audio
+
+    def _plain_loop(self, cond, lookback, previous, states, dtype):
+        """The inference loop in PyTorch operations: (samples, states)"""
+        batch, frames = cond.shape[:2]
+        size, history = self.subframe_size, self.num_previous
         # The history of subframe i is samples[:, i * size:][:, :history]
         samples = torch.empty(
             (batch, history + frames * self.hopsize), dtype=torch.float32,
-            device=features.device)
+            device=cond.device)
         samples[:, :history] = previous
         for frame in range(frames):
             index = lookback[:, frame]
@@ -311,10 +365,19 @@ class FARGAN(nn.Module):
                     states,
                     dtype)
                 samples[:, start + history:start + history + size] = output
-        audio = samples[:, history:, None]
-        if return_states:
-            return audio, (samples[:, -history:], states)
-        return audio
+        return samples, states
+
+    def _kernel_loop(self, cond, lookback, previous, states, dtype):
+        """The inference loop as K4 launches, one a subframe: (samples,
+        states)"""
+        slots = kernel.Slots(cond, lookback, previous, states, dtype)
+        if slots.count:
+            states = slots.step(0)[3]
+        for step in range(slots.count):
+            row = slots.step(step)
+            _, states = self.subframe(
+                row[0], row[1], row[2], states, dtype, None, slots, step)
+        return slots.samples, states
 
     def _train_loop(
         self, cond, lookback, previous, states, dtype, noise, return_states

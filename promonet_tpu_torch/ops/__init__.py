@@ -1,1 +1,1 @@
-from . import grid, mel, resblock, sparse, spectral, stft, viterbi
+from . import fargan, grid, mel, resblock, sparse, spectral, stft, viterbi

@@ -19,7 +19,9 @@ shows on the profiler's timeline. Outside a session a span reads one
 flag and does nothing else. A span never synchronizes and reads no
 device value: its start and end are the host's, on `time.time_ns()`'s
 clock, which is the clock of the profiler's events, and its counts come
-from shapes and lengths the caller knows.
+from shapes, lengths and host counters the caller knows. Entered, a
+span gives its record's counts, which the caller may set before it
+closes (None outside a session).
 """
 import collections
 import contextlib
@@ -147,6 +149,7 @@ class _On:
         self.range = autograd_profiler.record_function(
             'promonet.' + self.name)
         self.range.__enter__()
+        return self.record.counts
 
     def __exit__(self, *exception):
         try:
@@ -161,8 +164,10 @@ def span(name, **counts):
     """A context manager that marks the stage `name` of the program
 
     Inside a profiler session it keeps a `Record` of the stage with
-    `counts` (numbers from shapes and lengths) and opens the profiler
-    range `promonet.<name>`; outside one it does nothing."""
+    `counts` (numbers from shapes, lengths and host counters), opens the
+    profiler range `promonet.<name>` and, entered, gives the record's
+    counts, which the caller may set before the span closes; outside one
+    it does nothing and gives None."""
     if not autograd_profiler._is_profiler_enabled:
         return _OFF
     return _On(name, counts)

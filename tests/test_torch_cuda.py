@@ -1116,3 +1116,166 @@ def test_one_nccl_rank_steps_as_the_card_alone(device, tmp_path):
     for name, value in expected.items():
         assert abs(float(metrics[name]) - float(value)) <= \
             1e-5 * abs(float(value)), name
+
+
+###############################################################################
+# K4: FARGAN's subframe network as one launch
+###############################################################################
+
+# The benchmark's readings of the plain bf16 program against its float32
+# reference over 25 seeds (PERF.md, section 2): every subframe's output,
+# relative, and the worst carried state, relative
+FARGAN_OUTPUT_GAP = 0.006
+FARGAN_STATE_GAP = 0.0047
+
+
+def _fargan_backbone(device, seed=21):
+    from promonet_tpu_torch.models import fargan, init
+    return init.seeded(fargan.FARGAN(13, 6), seed).to(device).eval()
+
+
+def _fargan_features(batch, frames, seed, device):
+    rng = np.random.default_rng(seed)
+    features = rng.standard_normal((batch, frames, 13)).astype(np.float32)
+    # Pitch periods from two periods back (below 64) to the longest
+    features[..., -1] = rng.uniform(20., 450., (batch, frames))
+    global_features = rng.standard_normal((batch, 1, 6)).astype(np.float32)
+    return (torch.from_numpy(features).to(device),
+            torch.from_numpy(global_features).to(device))
+
+
+def _fargan_calls(backbone, features, global_features):
+    """(audio, [(inputs, output, states)] of every subframe call): a
+    forward hook keeps each call's tensors, as the benchmark's check does"""
+    kept = []
+    handle = backbone.subframe.register_forward_hook(
+        lambda module, arguments, output: kept.append(
+            (arguments[:4], output[0], output[1])))
+    try:
+        with torch.no_grad():
+            audio = backbone(features, global_features, torch.bfloat16)
+    finally:
+        handle.remove()
+    return audio, kept
+
+
+@pytest.mark.parametrize('batch', [1, 3, 16, 40])
+def test_fargan_kernel_matches_the_plain_subframe(device, batch):
+    """A whole bf16 synthesis through K4, each subframe held to the plain
+    subframe in float32 from the same inputs, as the benchmark holds the
+    program: the fed history exact, every output and the carried states
+    within the plain program's own readings; one launch a subframe"""
+    from promonet_tpu_torch.models import fargan
+    from promonet_tpu_torch.ops import fargan as kernel
+    backbone = _fargan_backbone(device)
+    frames = 24
+    features, global_features = _fargan_features(batch, frames, batch, device)
+    launches = kernel.subframe.launches
+    audio, calls = _fargan_calls(backbone, features, global_features)
+    torch.cuda.synchronize()
+    count = frames * backbone.subframes
+    assert kernel.subframe.launches == launches + count
+    assert len(calls) == count
+    # The history: what each subframe was fed is what the loop's own
+    # samples hold at its pitch periods, exactly
+    size, history = backbone.subframe_size, backbone.num_previous
+    samples = torch.cat((
+        torch.zeros((batch, history), device=device), audio[..., 0]), -1)
+    period = torch.clamp(torch.round(features[..., -1]).long(), 1,
+                         history - size - 2)
+    index = fargan.lookback_index(period, history, size)
+    for step, ((_, lookback, previous, _), output, _) in enumerate(calls):
+        window = samples[:, step * size:step * size + history]
+        fed = torch.gather(window, 1, index[:, step // backbone.subframes])
+        assert torch.equal(lookback.float(), fed)
+        assert torch.equal(previous.float(), window[:, -size:])
+        assert torch.equal(output.float(),
+                           samples[:, history + step * size:][:, :size])
+    # Every subframe against the plain subframe in float32
+    inputs = [torch.cat([call[0][k].float() for call in calls])
+              for k in range(3)]
+    states = [torch.cat([call[0][3][k].float() for call in calls])
+              for k in range(4)]
+    outputs = torch.cat([call[1].float() for call in calls])
+    carried = [torch.cat([call[2][k].float() for call in calls])
+               for k in range(4)]
+    with torch.no_grad():
+        plain, plain_states = backbone.subframe.plain(
+            *inputs, states, torch.float32, None)
+    output_gap = float((outputs - plain).norm() / plain.norm())
+    state_gap = max(float((state - reference).norm() / reference.norm())
+                    for state, reference in zip(carried, plain_states))
+    assert output_gap <= FARGAN_OUTPUT_GAP, output_gap
+    assert state_gap <= FARGAN_STATE_GAP, state_gap
+    # The states a call returns are those the next call receives
+    for (_, _, returned), (arguments, _, _) in zip(calls, calls[1:]):
+        assert all(a is b for a, b in zip(returned, arguments[3]))
+
+
+def test_fargan_kernel_runs_are_bit_equal_with_and_without_a_hook(device):
+    """Two runs through K4 give the same bits, hooked or not"""
+    backbone = _fargan_backbone(device)
+    features, global_features = _fargan_features(1, 40, 5, device)
+    hooked, _ = _fargan_calls(backbone, features, global_features)
+    with torch.no_grad():
+        plain_run, carry = backbone(
+            features, global_features, torch.bfloat16, return_states=True)
+        again, again_carry = backbone(
+            features, global_features, torch.bfloat16, return_states=True)
+    assert torch.equal(hooked, plain_run) and torch.equal(plain_run, again)
+    assert torch.equal(carry[0], again_carry[0])
+    for a, b in zip(carry[1], again_carry[1]):
+        assert torch.equal(a, b)
+
+
+def test_fargan_streamer_on_the_kernel_continues_one_call(device):
+    """FARGANStreamer over three chunks through K4 against one offline
+    call: within the smoke's FARGAN bounds (the conditioning's products
+    run over other row counts); the carry itself is the kernel's"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.ops import fargan as kernel
+    config = port.config.load(
+        Path(__file__).resolve().parent.parent / 'configs' / 'fargan.py')
+    generator = port.models.init.seeded(
+        port.models.Generator(config), 4).to(device).eval()
+    rng = np.random.default_rng(8)
+    frames, chunk = 96, 32
+    logits = 2 * rng.standard_normal((config.PPG_CHANNELS, frames))
+    features = (
+        rng.uniform(-60, 0, (config.LOUDNESS_BANDS, frames)).astype(
+            np.float32),
+        rng.uniform(80, 300, (1, frames)).astype(np.float32),
+        rng.uniform(0, 1, (1, frames)).astype(np.float32),
+        (np.exp(logits) / np.exp(logits).sum(0)).astype(np.float32))
+    offline = port.synthesize.from_features(
+        *(torch.from_numpy(x).to(device) for x in features),
+        generator=generator, speaker=3, device=device)
+    launches = kernel.subframe.launches
+    streamer = port.synthesize.FARGANStreamer(
+        generator, speaker=3, chunk_frames=chunk, device=device)
+    chunked = np.concatenate([
+        streamer.feed(*(x[:, start:start + chunk] for x in features))
+        for start in range(0, frames, chunk)], -1)
+    assert kernel.subframe.launches == launches + frames * 4
+    assert chunked.shape == offline.shape == (1, frames * config.HOPSIZE)
+    difference = np.abs(chunked - offline)
+    assert difference[..., :4 * config.HOPSIZE].max() <= 2. ** -10
+    assert difference.max() <= 2. ** -8
+    correlation = float((chunked * offline).sum()) / float(
+        np.linalg.norm(chunked) * np.linalg.norm(offline))
+    assert correlation >= 0.9999
+
+
+def test_fargan_training_and_float32_take_the_plain_subframe(device):
+    """The training route, float32 and autograd launch no K4"""
+    from promonet_tpu_torch.ops import fargan as kernel
+    backbone = _fargan_backbone(device)
+    features, global_features = _fargan_features(2, 3, 9, device)
+    launches = kernel.subframe.launches
+    with torch.no_grad():
+        backbone(features, global_features, torch.float32)
+        backbone(features, global_features, torch.bfloat16, train=True)
+    # The inference route under autograd (its backward is the training
+    # route's)
+    backbone(features, global_features, torch.bfloat16)
+    assert kernel.subframe.launches == launches

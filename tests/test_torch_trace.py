@@ -276,10 +276,15 @@ def test_frame_counts_of_fargan_and_batched_synthesis():
     profiled(lambda: port.synthesize.from_features(
         *features, generator=generator, device='cpu'))
     records = timer.spans()
-    assert [record.name for record in records] == ['synthesize', 'vocoder']
+    assert [record.name for record in records] == [
+        'synthesize', 'vocoder', 'frame_loop']
     bucket = port.data.bucket_frames(frames, config.INFERENCE_FRAME_BUCKETS)
     assert records[1].counts == {'frames': bucket, 'true_frames': frames}
     assert records[1].parent == records[0].id
+    # FARGAN's frame loop inside the vocoder: no subframe ran as K4 here
+    assert records[2].counts == {
+        'subframes': 4 * bucket, 'rows': 1, 'fused': 0}
+    assert records[2].parent == records[1].id
 
     timer.reset()
     config = port.config.load().replace(HIFIGAN_UPSAMPLE_INITIAL_SIZE=16)

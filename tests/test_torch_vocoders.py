@@ -426,3 +426,246 @@ def test_dense_casts_its_weight_once():
         again = layer(x, torch.bfloat16)
     assert layer._casts['weight'][1] is not cached
     torch.testing.assert_close(again, 2 * first)
+
+
+###############################################################################
+# FARGAN's inference loop: the plain route, and K4's route in slots
+# (`ops.fargan.Slots`) with a stand-in for the kernel
+###############################################################################
+
+
+def _subframe_loop(backbone, features, global_features, dtype,
+                   initial_states=None):
+    """The inference loop before K4: one sample buffer, each subframe's
+    lookback gathered from it and cast, the subframe called without
+    slots"""
+    batch, frames, _ = features.shape
+    size, history = backbone.subframe_size, backbone.num_previous
+    period = torch.clamp(
+        torch.round(features[..., -1]).long(), 1, history - size - 2)
+    cond = backbone.conditioning(torch.cat((
+        features[..., :-1], global_features.expand(batch, frames, -1)), -1),
+        dtype)
+    cond = cond.reshape(batch, frames, 2 * size, backbone.subframes)
+    cond = cond.transpose(2, 3).contiguous()
+    lookback = fargan.lookback_index(period, history, size)
+    if initial_states is None:
+        initial_states = backbone.initial_states(batch, dtype, features.device)
+    previous, states = initial_states
+    samples = torch.empty((batch, history + frames * backbone.hopsize))
+    samples[:, :history] = previous
+    for frame in range(frames):
+        index = lookback[:, frame]
+        for subframe in range(backbone.subframes):
+            start = (frame * backbone.subframes + subframe) * size
+            window = samples[:, start:start + history]
+            output, states = backbone.subframe(
+                cond[:, frame, subframe],
+                torch.gather(window, 1, index).to(dtype),
+                window[:, -size:].to(dtype), states, dtype)
+            samples[:, start + history:start + history + size] = output
+    return samples[:, history:, None], (samples[:, -history:], states)
+
+
+def _fargan_inputs(batch, frames, seed):
+    rng = np.random.default_rng(seed)
+    features = rng.standard_normal((batch, frames, 13)).astype(np.float32)
+    # Periods from below a subframe (two periods back) to the longest
+    features[..., -1] = rng.uniform(20., 450., (batch, frames))
+    global_features = rng.standard_normal((batch, 1, 6)).astype(np.float32)
+    return torch.from_numpy(features), torch.from_numpy(global_features)
+
+
+def _stand_in_for_k4(monkeypatch):
+    """Let the CPU take K4's route, with the plain subframe in the kernel's
+    place writing what one launch writes: the output and the new states
+    into their slots, the samples into the history and the next
+    subframe's lookback and previous subframe into theirs. Returns the
+    steps it ran"""
+    from promonet_tpu_torch.ops import fargan as kernel
+    launched = []
+
+    def launch(network, features, lookback, previous, states, slots, step):
+        own = slots.step(step)
+        assert all(a is b for a, b in zip(
+            (features, lookback, previous, states), own))
+        output, new_states = network.plain(
+            features, lookback, previous, states, torch.bfloat16, None)
+        own[4].copy_(output)
+        for slot, state in zip(own[5], new_states):
+            slot.copy_(state)
+        start = slots.history + step * slots.size
+        slots.samples[:, start:start + slots.size] = own[4]
+        if step + 1 < slots.count:
+            slots.feed(step + 1)
+        launched.append(step)
+        launch.launches += 1
+        return own[4], own[5]
+
+    launch.launches = 0
+    monkeypatch.setattr(kernel, 'KERNEL_DEVICES', ('cpu',))
+    monkeypatch.setattr(kernel, 'subframe', launch)
+    return launched
+
+
+ROUTES = [('plain', torch.bfloat16), ('plain', torch.float32),
+          ('slots', torch.bfloat16)]
+
+
+@pytest.mark.parametrize('route,dtype', ROUTES,
+                         ids=['plain-bf16', 'plain-float32', 'slots-bf16'])
+@pytest.mark.parametrize('carried', [False, True], ids=['zeros', 'carry'])
+@pytest.mark.parametrize('batch', [1, 3])
+def test_slot_loop_is_the_subframe_loop(monkeypatch, batch, carried, route,
+                                        dtype):
+    """Either route of the inference loop gives, bit for bit, the audio
+    and the carry of the loop before K4, from zeros and from a carried
+    state"""
+    torch.manual_seed(batch)
+    backbone = port.models.init.seeded(fargan.FARGAN(13, 6), 11).eval()
+    features, global_features = _fargan_inputs(batch, 5, 20 + batch)
+    initial = None
+    with torch.no_grad():
+        if carried:
+            _, initial = backbone(
+                *_fargan_inputs(batch, 3, 40 + batch), dtype,
+                return_states=True)
+        old, (old_history, old_states) = _subframe_loop(
+            backbone, features, global_features, dtype, initial)
+        launched = (_stand_in_for_k4(monkeypatch) if route == 'slots'
+                    else [])
+        audio, (history, states) = backbone(
+            features, global_features, dtype, initial_states=initial,
+            return_states=True)
+    assert launched == (list(range(5 * backbone.subframes))
+                        if route == 'slots' else [])
+    assert torch.equal(audio, old)
+    assert torch.equal(history, old_history)
+    for state, old_state in zip(states, old_states):
+        assert state.dtype == dtype and torch.equal(state, old_state)
+
+
+@pytest.mark.parametrize('route', ['plain', 'slots'])
+@pytest.mark.parametrize('batch', [1, 3])
+def test_subframe_hook_sees_each_call_and_keeps_what_it_saw(
+        monkeypatch, batch, route):
+    """A forward hook on the subframe sees one call a subframe, and the
+    tensors each call received and returned are its own and are never
+    written again (the benchmark's check keeps them)"""
+    backbone = port.models.init.seeded(fargan.FARGAN(13, 6), 12).eval()
+    features, global_features = _fargan_inputs(batch, 4, 30 + batch)
+    if route == 'slots':
+        _stand_in_for_k4(monkeypatch)
+    kept = []
+
+    def hook(module, arguments, output):
+        tensors = [*arguments[:3], *arguments[3], output[0], *output[1]]
+        kept.append((tensors, [tensor.clone() for tensor in tensors]))
+
+    handle = backbone.subframe.register_forward_hook(hook)
+    try:
+        with torch.no_grad():
+            audio = backbone(features, global_features, torch.bfloat16)
+    finally:
+        handle.remove()
+    assert len(kept) == 4 * backbone.subframes
+    for tensors, copies in kept:
+        for tensor, copy in zip(tensors, copies):
+            assert torch.equal(tensor, copy)
+    # Each call's arguments and outputs lie apart from every other call's,
+    # except the states a call returns, which the next call receives
+    regions = {}
+    for call, (tensors, _) in enumerate(kept):
+        for position, tensor in enumerate(tensors):
+            if position in (3, 4, 5, 6) and call:
+                continue
+            start = tensor.data_ptr()
+            end = start + tensor.numel() * tensor.element_size()
+            assert (start, end) not in regions
+            regions[(start, end)] = (call, position)
+    for call in range(1, len(kept)):
+        assert all(a is b for a, b in zip(
+            kept[call][0][3:7], kept[call - 1][0][8:12]))
+    outputs = torch.cat([tensors[7] for tensors, _ in kept], -1)
+    assert torch.equal(outputs.float(), audio[..., 0])
+
+
+@pytest.mark.parametrize('route', ['plain', 'slots'])
+def test_frame_loop_span_counts_subframes_and_fused_ones(monkeypatch, route):
+    """The loop is the span `frame_loop` inside `vocoder`; `fused` counts
+    the subframes K4 ran, from its launches: none on the plain route"""
+    config = port.config.load('configs/fargan.py')
+    generator = port.models.init.seeded(
+        port.models.Generator(config), 3).eval()
+    inputs = _as_torch(_generator_inputs(16, 2, 5))
+    if route == 'slots':
+        _stand_in_for_k4(monkeypatch)
+    timer = port.utils.timer
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        timer.reset()
+        generator(*inputs)
+        spans = timer.spans()
+    loops = [span for span in spans if span.name == 'frame_loop']
+    assert len(loops) == 1
+    parent = next(span for span in spans if span.id == loops[0].parent)
+    assert parent.name == 'vocoder'
+    subframes = 2 * 5 * 4
+    assert loops[0].counts == {
+        'subframes': subframes, 'rows': 2,
+        'fused': subframes if route == 'slots' else 0}
+
+
+def test_subframe_route_follows_device_dtype_grad_and_noise(monkeypatch):
+    """K4 takes CUDA bf16 subframes without autograd or noise, decided
+    from those alone: here the CPU stands in for the card and the plain
+    subframe for the launch"""
+    from promonet_tpu_torch.ops import fargan as kernel
+    launched = _stand_in_for_k4(monkeypatch)
+    backbone = port.models.init.seeded(fargan.FARGAN(13, 6), 13).eval()
+    features, global_features = _fargan_inputs(1, 2, 7)
+    # Inference in bf16 without autograd: every subframe
+    with torch.no_grad():
+        backbone(features, global_features, torch.bfloat16)
+    assert launched == list(range(8))
+    launched.clear()
+    # float32, autograd on, and the training route: none
+    with torch.no_grad():
+        backbone(features, global_features, torch.float32)
+    backbone(features, global_features, torch.bfloat16)
+    backbone(features, global_features, torch.bfloat16, train=True)
+    assert launched == []
+    # Training noise: never
+    x = torch.zeros(1)
+    with torch.no_grad():
+        assert kernel.uses_kernel(x, torch.bfloat16)
+        assert not kernel.uses_kernel(
+            x, torch.bfloat16,
+            fargan.Uniform(torch.Generator().manual_seed(0)))
+    monkeypatch.setattr(kernel, 'KERNEL_DEVICES', ('cuda',))
+    with torch.no_grad():
+        assert not kernel.uses_kernel(x, torch.bfloat16)
+
+
+def test_kernel_reads_only_its_slots_inputs():
+    """K4 reads a subframe's inputs from its slots: a call given other
+    tensors is refused before anything is built or launched"""
+    from promonet_tpu_torch.ops import fargan as kernel
+    backbone = port.models.init.seeded(fargan.FARGAN(13, 6), 14).eval()
+    slots = kernel.Slots(
+        torch.zeros((1, 1, 4, 128), dtype=torch.bfloat16),
+        torch.zeros((1, 1, 68), dtype=torch.long),
+        torch.zeros((1, 512)), backbone.initial_states(
+            1, torch.bfloat16, 'cpu')[1], torch.bfloat16)
+    features, lookback, previous, states, *_ = slots.step(0)
+    launches = kernel.subframe.launches
+    with torch.no_grad(), pytest.raises(ValueError, match='slots'):
+        backbone.subframe(
+            features.clone(), lookback, previous, states, torch.bfloat16,
+            None, slots, 0)
+    with torch.no_grad(), pytest.raises(ValueError, match='slots'):
+        backbone.subframe(
+            features, lookback, previous, tuple(states), torch.bfloat16,
+            None, slots, 1)
+    assert kernel.subframe.launches == launches
+    assert slots.plan is None
