@@ -354,14 +354,22 @@ def ppg_model(path=None, config=None, device='cuda'):
 def speaker_encoder(path=None, config=None, device='cuda'):
     """The speaker encoder with its weights, on `device`, in eval mode
 
-    path None takes the newest `speaker-*.pt` in config.CHECKPOINTS_DIR,
-    else the shipped orbax checkpoint; without either, None, with a
-    notice: `preprocess.speaker.from_audio` then takes the spectral
-    embedding. `path` may name an orbax directory.
+    path None takes, as the JAX package resolves it, the WavLM-Base+
+    x-vector model where config.CHECKPOINTS_DIR holds its state dict
+    (`wavlm_checkpoint`; a `models.wavlm.WavLMXVector` computing in
+    PRECISION), else the newest `speaker-*.pt` there, else the shipped
+    orbax checkpoint; without any, None, with a notice:
+    `preprocess.speaker.from_audio` then takes the spectral embedding.
+    `path` may name a WavLM checkpoint, a `speaker-*.pt` file or an orbax
+    directory.
     """
     from .preprocess import SpeakerEncoder
 
     config = config_module.default() if config is None else config
+    if path is None:
+        path = wavlm_checkpoint(config)
+    if path is not None and Path(path).name.startswith('wavlm'):
+        return wavlm_encoder(path, config, device)
     payload = _payload(
         path, config, 'speaker', 'using the spectral embedding')
     if payload is None:
@@ -370,6 +378,64 @@ def speaker_encoder(path=None, config=None, device='cuda'):
         num_mels=config.NUM_MELS,
         embedding_channels=config.WAVLM_EMBEDDING_CHANNELS)
     return _with_weights(model, payload, device)
+
+
+def wavlm_checkpoint(config=None):
+    """The last, in name order, of config.CHECKPOINTS_DIR's `wavlm*`
+    entries: a state dict of `transformers.WavLMForXVector` at the
+    published widths (a `.pt` or `.bin` file), or a directory as
+    `save_pretrained(..., safe_serialization=False)` writes it
+    (`config.json` beside `pytorch_model.bin`); None where there is none"""
+    config = config_module.default() if config is None else config
+    directory = Path(config.CHECKPOINTS_DIR)
+    if not directory.is_dir():
+        return None
+    found = sorted(
+        path for path in directory.glob('wavlm*')
+        if path.suffix in ('.pt', '.bin') or
+        (path / 'pytorch_model.bin').exists())
+    return found[-1] if found else None
+
+
+def wavlm_encoder(path, config=None, device='cuda'):
+    """`models.wavlm.WavLMXVector` with the weights of a WavLM checkpoint
+    (`wavlm_checkpoint`), on `device`, in eval mode, computing in
+    PRECISION. A directory's `config.json` gives the sizes; a bare file
+    is at the published widths."""
+    from .models import wavlm
+
+    config = config_module.default() if config is None else config
+    path, values = Path(path), {}
+    if path.is_dir():
+        if (path / 'config.json').exists():
+            values = json.loads((path / 'config.json').read_text())
+        path = path / 'pytorch_model.bin'
+    model = wavlm.WavLMXVector.from_config(
+        values, torch.bfloat16 if config.PRECISION == 'bfloat16'
+        else torch.float32)
+    model.load_state_dict(wavlm_state_dict(
+        torch.load(path, map_location='cpu', weights_only=True)))
+    return model.to(device_module.resolve(device)).eval()
+
+
+def wavlm_state_dict(state):
+    """A `WavLMForXVector` state dict in the port's names: the positional
+    convolution's weight norm as `weight_g`/`weight_v` (newer
+    `transformers` save it as `parametrizations.weight.original0/1`), the
+    speaker-classification head, its loss and the pre-training mask
+    embedding left out"""
+    renamed = {
+        'parametrizations.weight.original0': 'weight_g',
+        'parametrizations.weight.original1': 'weight_v'}
+    out = {}
+    for name, value in state.items():
+        if name.startswith(('classifier.', 'objective.')) or \
+                name == 'wavlm.masked_spec_embed':
+            continue
+        for old, new in renamed.items():
+            name = name.replace(old, new)
+        out[name] = value
+    return out
 
 
 def _generator_params(checkpoint):

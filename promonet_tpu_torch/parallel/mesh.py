@@ -26,6 +26,7 @@ import torch
 
 from .. import config as config_module
 from .. import device as device_module
+from ..utils import timer
 
 
 class Mesh:
@@ -180,13 +181,15 @@ def all_reduce_mean(tensors, mesh):
     one flat all-reduce; the tensors as they are where mesh is None or was
     built without a process group
 
-    Each issued all-reduce adds one to `all_reduce_mean.launches`.
+    Each issued all-reduce adds one to `all_reduce_mean.launches` and is
+    the span `train.allreduce` (count `values`, the elements reduced).
     """
     dist = _distributed()
     if dist is None or mesh is None or not mesh.group:
         return list(tensors)
     flat = torch.cat([tensor.reshape(-1) for tensor in tensors])
-    dist.all_reduce(flat)
+    with timer.span('train.allreduce', values=flat.numel()):
+        dist.all_reduce(flat)
     all_reduce_mean.launches += 1
     flat /= mesh.world
     out, offset = [], 0

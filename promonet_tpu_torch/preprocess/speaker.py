@@ -1,13 +1,16 @@
 """Speaker embeddings for zero-shot conditioning
 
 Counterpart of `promonet_tpu/preprocess/speaker.py`. `from_audio`
-resolves as the JAX package does, without its first step:
+resolves as the JAX package does:
 
-1. WavLM x-vectors are not ported: the model is not in the repository,
-   and the JAX package takes that path only where it is cached locally;
+1. WavLM-Base+ x-vectors (`models.wavlm.WavLMXVector`, upstream's
+   `microsoft/wavlm-base-plus-sv`), when the encoder is given or a
+   WavLM state dict is in config.CHECKPOINTS_DIR
+   (`load.speaker_encoder`): the audio resampled to 16 kHz on the host,
+   then the model on the device (`wavlm_embedding`);
 2. the x-vector-style `SpeakerEncoder`, when its weights are given or
    found in config.CHECKPOINTS_DIR or, as the JAX package finds them,
-   in its shipped checkpoint (`load.speaker_encoder`);
+   in its shipped checkpoint;
 3. otherwise `spectral_embedding`, per-band log-mel statistics that need
    no weights.
 
@@ -25,10 +28,10 @@ from torch import nn
 from .. import config as config_module
 from .. import device as device_module
 from .. import load
-from ..models import init
+from ..models import init, wavlm
 from ..models.modules import Conv1d
 from ..utils import audio as audio_module
-from ..utils import checkpoint
+from ..utils import checkpoint, timer
 from . import spectrogram as spectrogram_module
 from . import training
 
@@ -84,10 +87,12 @@ def from_audio(audio, encoder=None, sample_rate=None, config=None,
 
     Arguments
         audio: (1, T) or (T,) float waveform (numpy or tensor)
-        encoder: a `SpeakerEncoder` with its weights, on `device`; None
-            takes the checkpoint `load.speaker_encoder` resolves
-            (config.CHECKPOINTS_DIR, else the shipped one), and uses
-            `spectral_embedding` where there is none
+        encoder: a `models.wavlm.WavLMXVector` or a `SpeakerEncoder`
+            with its weights, on `device`; None takes the encoder
+            `load.speaker_encoder` resolves (a WavLM state dict or a
+            `speaker-*.pt` in config.CHECKPOINTS_DIR, else the shipped
+            checkpoint), and uses `spectral_embedding` where there is
+            none
         sample_rate: rate of `audio`; None is config.SAMPLE_RATE
         device: where to run; 'cuda' raises on a host without a card
 
@@ -101,10 +106,44 @@ def from_audio(audio, encoder=None, sample_rate=None, config=None,
     if encoder is None:
         # As in the JAX package, the fallback reads the audio at its rate
         return spectral_embedding(audio, config, device)
+    if isinstance(encoder, wavlm.WavLMXVector):
+        return wavlm_embedding(
+            audio, encoder,
+            config.SAMPLE_RATE if sample_rate is None else sample_rate,
+            device)
     if sample_rate is not None and sample_rate != config.SAMPLE_RATE:
         audio = audio_module.resample(
             _to_numpy(audio), sample_rate, config.SAMPLE_RATE)
     return encoder_embedding(audio, encoder, config, device)
+
+
+def wavlm_embedding(audio, encoder, sample_rate, device='cuda'):
+    """Unit-norm x-vector of audio (1, T) at `sample_rate` by a
+    `models.wavlm.WavLMXVector`
+
+    The audio is resampled to 16 kHz on the host (`utils.audio.
+    resample`), as the JAX package resamples it. The span
+    `preprocess.speaker` (counts `samples`, the 16 kHz samples, and
+    `frames`, the encoder's frames) holds `speaker.features` (the
+    resampling, the convolutions and the projection), `speaker.encoder`
+    (the positional convolution and the layers) and `speaker.xvector`
+    (the weighted sum, the TDNN, the pooling and the dense layer).
+    """
+    device = device_module.resolve(device)
+    with torch.no_grad(), timer.span('preprocess.speaker') as counts:
+        with timer.span('speaker.features'):
+            audio = audio_module.resample(
+                np.asarray(_to_numpy(audio), np.float32).reshape(1, -1),
+                sample_rate, wavlm.SAMPLE_RATE)
+            samples = audio.shape[-1]
+            features = encoder.features(torch.from_numpy(audio).to(device))
+        if counts is not None:
+            counts.update(samples=samples, frames=features.shape[1])
+        with timer.span('speaker.encoder'):
+            states = encoder.encode(features)
+        with timer.span('speaker.xvector'):
+            embedding = encoder.xvector(states)[0]
+        return _unit(embedding)
 
 
 def encoder_embedding(audio, encoder, config=None, device='cuda'):
