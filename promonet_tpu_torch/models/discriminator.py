@@ -145,8 +145,11 @@ class Discriminator(nn.Module):
 
     def _call(self, discriminator, audio):
         if self.remat and torch.is_grad_enabled():
+            # No discriminator draws random numbers: no generator state to
+            # keep (reading one is refused inside a CUDA graph's capture)
             return torch.utils.checkpoint.checkpoint(
-                discriminator, audio, self.dtype, use_reentrant=False)
+                discriminator, audio, self.dtype, use_reentrant=False,
+                preserve_rng_state=False)
         return discriminator(audio, self.dtype)
 
 

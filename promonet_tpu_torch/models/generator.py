@@ -128,9 +128,12 @@ class Generator(BaseGenerator):
         super().__init__(
             config, config.NUM_FEATURES + (config.MODEL == 'fargan'))
         if config.VARIABLE_PITCH_BINS:
-            # A plain attribute, not a buffer: `.to(dtype)` must not round it
-            self.pitch_distribution = torch.from_numpy(
-                np.asarray(load.pitch_distribution(config), np.float32))
+            # A buffer outside the state dict, so that it moves with the
+            # generator (a cast below float32 would round it: nothing
+            # casts the generator, whose weights stay float32)
+            self.register_buffer('pitch_distribution', torch.from_numpy(
+                np.asarray(load.pitch_distribution(config), np.float32)),
+                persistent=False)
         if 'pitch' in config.INPUT_FEATURES and config.PITCH_EMBEDDING:
             self.pitch_embed = nn.Embedding(
                 config.PITCH_BINS, config.PITCH_EMBEDDING_SIZE)
@@ -221,7 +224,7 @@ class Generator(BaseGenerator):
                 columns.append(normalized[..., None])
             else:
                 if config.VARIABLE_PITCH_BINS:
-                    distribution = self.pitch_distribution.to(hz.device)
+                    distribution = self.pitch_distribution
                     # right=False is jnp.searchsorted's default side
                     bins = torch.searchsorted(
                         distribution, hz.contiguous(), right=False)

@@ -128,9 +128,13 @@ class Block(nn.Module):
     def forward(self, x, dtype=torch.float32, train=False):
         if train:
             if self.remat:
+                # The chain draws no random numbers: no generator state
+                # to keep (reading one is refused inside a CUDA graph's
+                # capture)
                 return torch.utils.checkpoint.checkpoint(
                     train_block, x, self.weight, self.bias, self.dilations,
-                    self.slope, dtype, use_reentrant=False)
+                    self.slope, dtype, use_reentrant=False,
+                    preserve_rng_state=False)
             return train_block(
                 x, self.weight, self.bias, self.dilations, self.slope, dtype)
         if x.device.type == 'cuda' and dtype == torch.bfloat16:

@@ -70,11 +70,20 @@ def linear_to_mel(
     log_dynamic_range_compression_threshold=None
 ):
     """Magnitude spectrogram (..., n_freq, T) to log-mels (..., n_mels, T)"""
-    basis = torch.from_numpy(
-        mel_filterbank(sample_rate, n_fft, n_mels).copy()).to(
-            spectrogram.device)
+    basis = _basis(sample_rate, n_fft, n_mels, spectrogram.device)
     mels = torch.log(torch.matmul(basis, spectrogram.float()).to(
         spectrogram.dtype))
     if log_dynamic_range_compression_threshold is not None:
         mels = torch.clamp(mels, min=log_dynamic_range_compression_threshold)
     return mels
+
+
+@functools.lru_cache(maxsize=16)
+def _basis(sample_rate, n_fft, n_mels, device):
+    """`mel_filterbank` as a tensor on `device`, copied there once: a step
+    that a CUDA graph holds copies nothing from the host. Made outside
+    inference mode, so that autograd may save it whatever mode its first
+    caller ran in."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            mel_filterbank(sample_rate, n_fft, n_mels).copy()).to(device)

@@ -76,6 +76,8 @@ import math
 import sys
 import time
 import traceback
+import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -100,6 +102,7 @@ from ..utils import log
 from ..utils import pause
 from ..utils import timer
 from ..utils.notify import notify
+from . import graphs as graphs_module
 from . import loss as loss_module
 
 
@@ -387,6 +390,8 @@ class State:
         generator's device, seeded with RANDOM_SEED + 1
     mesh: the `parallel.Mesh` whose ranks the gradients are averaged
         over (set by `train`; None trains alone)
+    graphs: the `train.graphs.Graphs` of the last step's key, or None
+        (`train_step`)
     notes: what the run has reported once (`evaluate`)
     """
 
@@ -408,7 +413,13 @@ class State:
             device=self.trainable[self.names[0]].device).manual_seed(
                 config.RANDOM_SEED + 1)
         self.mesh = None
+        self.graphs = None
         self.notes = set()
+
+    @property
+    def device(self):
+        """The device the state trains on"""
+        return self.trainable[self.names[0]].device
 
     def effective(self):
         """The generator's effective weights, as a state dict"""
@@ -420,7 +431,8 @@ def build_optimizer(parameters, config):
 
     'adamw' is `torch.optim.AdamW` with the JAX package's optax settings
     (decoupled weight decay scaled by the learning rate); 'adam' and
-    'sgd' as there too.
+    'sgd' as there too. `train_step` makes Adam and AdamW capturable
+    while its steps may be graphed (`train.graphs.capturable`).
     """
     spec = dict(config.OPTIMIZER)
     name = spec.pop('name', 'adamw')
@@ -533,7 +545,11 @@ def optimizer_state(optimizer, names, parameters):
 
 
 def load_optimizer_state(optimizer, names, parameters, saved):
-    """Put an `optimizer_state` back into a torch optimizer"""
+    """Put an `optimizer_state` back into a torch optimizer, the step
+    count where the optimizer keeps it: on each parameter's device where
+    it is capturable, else on the host"""
+    capturable = any(
+        group.get('capturable', False) for group in optimizer.param_groups)
     for name, parameter in zip(names, parameters):
         state = {
             kind: values[name].to(parameter) for kind, values in saved.items()
@@ -541,7 +557,9 @@ def load_optimizer_state(optimizer, names, parameters, saved):
         if not state:
             continue
         if 'step' in saved:
-            state['step'] = torch.tensor(float(saved['step']))
+            state['step'] = torch.tensor(
+                float(saved['step']),
+                device=parameter.device if capturable else 'cpu')
         optimizer.state[parameter] = state
 
 
@@ -584,8 +602,10 @@ def load_checkpoint(state, generator_path):
     directory, such as the release generator, and the JAX trainer's
     `discriminator-*` beside it) is carried over by `models.bridge`, its
     weight norm as (v, g) and its AdamW moments where it holds them, as
-    the JAX trainer restores it.
+    the JAX trainer restores it. The CUDA graphs of `state`'s steps are
+    dropped: the next step runs eagerly.
     """
+    state.graphs = None
     generator_path = Path(generator_path)
     payload = _payload(generator_path, 'generator')
     trainable = payload.get('trainable')
@@ -652,7 +672,12 @@ def _gradients(total, parameters):
 def _apply(optimizer, parameters, gradients):
     for parameter, gradient in zip(parameters, gradients):
         parameter.grad = gradient
-    optimizer.step()
+    with warnings.catch_warnings():
+        # A capturable optimizer stepped outside a graph: the eager
+        # warm-up step of a graphed key
+        warnings.filterwarnings(
+            'ignore', message='This instance was constructed with capturable')
+        optimizer.step()
     for parameter in parameters:
         parameter.grad = None
 
@@ -666,62 +691,107 @@ def train_step(state, batch, discriminate=True, adversarial=True,
         callable like it); None draws from `state.rng`. Other backbones
         take none.
 
-    The step is the span `train.step` (`utils.timer.span`) and its phases
-    the spans `train.generator` (the generator's forward pass),
+    The step is the span `train.step` (`utils.timer.span`; count
+    `graphed`, 1 where CUDA graphs ran it) and its phases the spans
+    `train.generator` (the generator's forward pass),
     `train.discriminator` (the discriminators' update), `train.losses`
     (the generator's losses through the updated discriminators),
     `train.backward` (the generator's gradients and their all-reduce) and
     `train.optimizer` (the gradients' extrema, the clip and the
     optimizer's step).
+
+    On a CUDA device the steps of one key are replayed as CUDA graphs
+    after an eager first step (`train.graphs`); `train.graphs.Graphs.
+    replays` counts the steps the graphs ran.
     """
-    with timer.span('train.step'):
-        return _train_step(state, batch, discriminate, adversarial, noise)
+    with timer.span('train.step', graphed=0) as counts:
+        graphable = graphs_module.graphable(state, batch, noise)
+        graphs_module.capturable(state, graphable)
+        if graphable and state.graphs is not None and state.graphs.key == \
+                graphs_module.key(state, batch, discriminate, adversarial):
+            if counts is not None:
+                counts['graphed'] = 1
+            return _replay(state, batch, discriminate, adversarial)
+        # Before the eager step, so that the old graphs' memory is free
+        state.graphs = None
+        work, phases = _phases(state, batch, discriminate, adversarial, noise)
+        for name, run in phases:
+            with timer.span('train.' + name):
+                run()
+        if graphable:
+            # The warm-up of the key: the next step of it is captured
+            state.graphs = graphs_module.Graphs(graphs_module.key(
+                state, batch, discriminate, adversarial))
+        return work.metrics
 
 
-def _train_step(state, batch, discriminate, adversarial, noise):
+def _replay(state, batch, discriminate, adversarial):
+    """The step by `state.graphs`, captured first where they are not yet"""
+    graphs = state.graphs
+    if graphs.phases is None:
+        # FARGAN draws its noise from `state.rng`
+        draws = previous_samples_of(batch, state.config) is not None
+        graphs.capture(state, batch, lambda static: _phases(
+            state, static, discriminate, adversarial, None),
+            state.rng if draws else None)
+    return graphs.replay(
+        state, batch, lambda batch: _generator_inputs(state, batch, None))
+
+
+def _generator_inputs(state, batch, noise):
+    """The generator's (args, kwargs) in a training step"""
+    kwargs = {'train': True}
+    previous_samples = previous_samples_of(batch, state.config)
+    if previous_samples is not None:
+        kwargs.update(
+            previous_samples=previous_samples,
+            noise=fargan.Uniform(state.rng) if noise is None else noise)
+    return generator_args(batch, state.config), kwargs
+
+
+def _phases(state, batch, discriminate, adversarial, noise):
+    """The step's phases: (work, [(phase name, callable)]); run in order,
+    the callables leave the generator's output as `work.raw` and the
+    step's metrics as `work.metrics` on `work`"""
     config = state.config
     loss = loss_module
     discriminator = state.discriminator
-    audio = batch['audio']
+    work = types.SimpleNamespace(metrics={})
 
-    with timer.span('train.generator'):
-        kwargs = {'train': True}
-        previous_samples = previous_samples_of(batch, config)
-        if previous_samples is not None:
-            kwargs.update(
-                previous_samples=previous_samples,
-                noise=fargan.Uniform(state.rng) if noise is None else noise)
-        generated = functional_call(
-            state.generator, state.effective(),
-            generator_args(batch, config), kwargs)
+    def generator():
+        args, kwargs = _generator_inputs(state, batch, noise)
+        work.raw = functional_call(
+            state.generator, state.effective(), args, kwargs)
+        work.generated = work.raw
+        previous_samples = kwargs.get('previous_samples')
         if previous_samples is not None:
             # The history is given, not generated: the losses see it as
             # it is
-            generated = torch.cat(
+            work.generated = torch.cat(
                 (previous_samples,
-                 generated[..., previous_samples.shape[-1]:]), -1)
-    metrics = {}
+                 work.raw[..., previous_samples.shape[-1]:]), -1)
 
     # Discriminators, against the detached output
-    if discriminate:
-        with timer.span('train.discriminator'):
-            real_logits, fake_logits, _, _ = discriminator(
-                audio, generated.detach())
-            total, real_losses, fake_losses = loss.discriminator(
-                real_logits, fake_logits, config)
-            parameters = list(discriminator.parameters())
-            _apply(
-                state.discriminator_optimizer, parameters,
-                parallel.all_reduce_mean(
-                    _gradients(total, parameters), state.mesh))
-            metrics['loss/discriminator/total'] = total.detach()
-            for i, value in enumerate(real_losses):
-                metrics[f'loss/discriminator/real-{i:02d}'] = value.detach()
-            for i, value in enumerate(fake_losses):
-                metrics[f'loss/discriminator/fake-{i:02d}'] = value.detach()
+    def update_discriminators():
+        audio, metrics = batch['audio'], work.metrics
+        real_logits, fake_logits, _, _ = discriminator(
+            audio, work.generated.detach())
+        total, real_losses, fake_losses = loss.discriminator(
+            real_logits, fake_logits, config)
+        parameters = list(discriminator.parameters())
+        _apply(
+            state.discriminator_optimizer, parameters,
+            parallel.all_reduce_mean(
+                _gradients(total, parameters), state.mesh))
+        metrics['loss/discriminator/total'] = total.detach()
+        for i, value in enumerate(real_losses):
+            metrics[f'loss/discriminator/real-{i:02d}'] = value.detach()
+        for i, value in enumerate(fake_losses):
+            metrics[f'loss/discriminator/fake-{i:02d}'] = value.detach()
 
     # Generator, through the updated discriminators
-    with timer.span('train.losses'):
+    def losses():
+        audio, generated = batch['audio'], work.generated
         total = torch.zeros((), device=audio.device)
         aux = {}
         if config.MEL_LOSS:
@@ -752,12 +822,16 @@ def _train_step(state, batch, discriminate, adversarial, noise):
             aux['loss/generator/feature-matching'] = feature_matching
             for i, value in enumerate(adversarial_losses):
                 aux[f'loss/generator/adversarial-{i:02d}'] = value
+        work.total, work.aux = total, aux
 
     parameters = [state.trainable[name] for name in state.names]
-    with timer.span('train.backward'):
-        gradients = parallel.all_reduce_mean(
-            _gradients(total, parameters), state.mesh)
-    with timer.span('train.optimizer'):
+
+    def backward():
+        work.gradients = parallel.all_reduce_mean(
+            _gradients(work.total, parameters), state.mesh)
+
+    def optimize():
+        gradients, metrics = work.gradients, work.metrics
         gradient_max = torch.max(torch.stack([g.max() for g in gradients]))
         gradient_min = torch.min(torch.stack([g.min() for g in gradients]))
         metrics['gradients/max'] = gradient_max
@@ -770,9 +844,16 @@ def _train_step(state, batch, discriminate, adversarial, noise):
                 for g in gradients]
         _apply(state.generator_optimizer, parameters, gradients)
 
-        metrics['loss/generator/total'] = total.detach()
-        metrics.update({name: value.detach() for name, value in aux.items()})
-    return metrics
+        metrics['loss/generator/total'] = work.total.detach()
+        metrics.update(
+            {name: value.detach() for name, value in work.aux.items()})
+
+    phases = [('generator', generator)]
+    if discriminate:
+        phases.append(('discriminator', update_discriminators))
+    phases += [('losses', losses), ('backward', backward),
+               ('optimizer', optimize)]
+    return work, phases
 
 
 ###############################################################################

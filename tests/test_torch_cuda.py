@@ -1119,6 +1119,301 @@ def test_one_nccl_rank_steps_as_the_card_alone(device, tmp_path):
 
 
 ###############################################################################
+# The training step as CUDA graphs (`train.graphs`)
+###############################################################################
+
+# A bf16 step: relative gaps within one bf16 rounding step
+BF16_GAP = 2 ** -7
+
+
+@pytest.fixture
+def deterministic(device):
+    """cuDNN's deterministic algorithms, so that a graphed step and an
+    eager step do the same arithmetic: a nondeterministic weight
+    gradient's atomics move a narrow bf16 step's largest gradient by a
+    third between two eager runs"""
+    torch.backends.cudnn.deterministic = True
+    yield device
+    torch.backends.cudnn.deterministic = False
+
+
+def _graph_batches(config, count, device, seed):
+    """`count` training batches of BATCH_SIZE x CHUNK_SIZE made on the
+    card"""
+    import promonet_tpu_torch as port
+    generator = torch.Generator(device=device).manual_seed(seed)
+    rows, frames = config.BATCH_SIZE, config.CHUNK_SIZE // config.HOPSIZE
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    out = []
+    for _ in range(count):
+        audio = 0.1 * torch.randn(
+            (rows, 1, config.CHUNK_SIZE), generator=generator, device=device)
+        ppg = uniform(rows, config.PPG_CHANNELS, frames)
+        out.append({
+            'loudness': -80. + 80. * uniform(
+                rows, config.WINDOW_SIZE // 2 + 1, frames),
+            'pitch': 80. + 220. * uniform(rows, frames),
+            'periodicity': uniform(rows, frames),
+            'ppg': ppg / ppg.sum(1, keepdim=True),
+            'speakers': torch.randint(
+                0, config.NUM_SPEAKERS, (rows,), generator=generator,
+                device=device),
+            'spectral_balance_ratios': 0.9 + 0.2 * uniform(rows),
+            'loudness_ratios': 0.9 + 0.2 * uniform(rows),
+            'spectrograms': port.preprocess.spectrogram.from_audio(
+                audio, config),
+            'audio': audio})
+    return out
+
+
+def _twins(config, device, monkeypatch=None):
+    """Two `State`s from one seed, each keeping the generator's output of
+    every step by a forward hook: the first eager (a forward pre-hook is
+    one of the cases a graph cannot serve), the second free to be
+    graphed. With `monkeypatch`, the eager twin's Adam and AdamW stay
+    capturable, as a graphed key's are, so that the twins do the same
+    optimizer arithmetic: an eager-only state's plain AdamW rounds its
+    float32 update otherwise, which moves a narrow bf16 step's gradient
+    extrema by more than a bf16 step"""
+    from promonet_tpu_torch.train import core, graphs
+    states, outputs = [], []
+    if monkeypatch is not None:
+        switch = graphs.capturable
+        monkeypatch.setattr(graphs, 'capturable', lambda state, on: switch(
+            state, on or state is states[0]))
+    for eager in (True, False):
+        state = core.create_state(config, device)
+        kept = []
+        if eager:
+            state.generator.register_forward_pre_hook(lambda *_: None)
+        state.generator.register_forward_hook(
+            lambda module, args, output, kept=kept: kept.append(
+                output.detach().clone()))
+        states.append(state)
+        outputs.append(kept)
+    return states, outputs
+
+
+def _assert_metrics_close(metrics, expected, index, gap=BF16_GAP):
+    assert list(metrics) == list(expected)
+    for name, value in expected.items():
+        assert abs(float(metrics[name]) - float(value)) <= \
+            gap * abs(float(value)) + 1e-6, (index, name)
+
+
+def _gap(ours, theirs):
+    return float((ours.float() - theirs.float()).norm() /
+                 theirs.float().norm().clamp_min(1e-30))
+
+
+def _assert_states_close(graphed, eager):
+    """Every leaf's change and AdamW moment, all leaves together, within
+    a bf16 step of the eager state's"""
+    pairs = []
+    for state in (graphed, eager):
+        leaves = [state.trainable[name] for name in state.names] + list(
+            state.discriminator.parameters())
+        moments = {kind: torch.cat([
+            optimizer.state[leaf][kind].reshape(-1) for optimizer, group in (
+                (state.generator_optimizer, leaves[:len(state.names)]),
+                (state.discriminator_optimizer, leaves[len(state.names):]))
+            for leaf in group]) for kind in ('exp_avg', 'exp_avg_sq')}
+        pairs.append((torch.cat([leaf.detach().reshape(-1)
+                                 for leaf in leaves]), moments))
+    (leaves, moments), (eager_leaves, eager_moments) = pairs
+    for kind in moments:
+        assert _gap(moments[kind], eager_moments[kind]) <= BF16_GAP, kind
+    return leaves, eager_leaves
+
+
+def test_graphed_steps_match_eager_steps(deterministic, monkeypatch):
+    """Five steps on resident 64 x 16384 batches at full width, eagerly
+    and graphed (an eager step, the capture, three replays): the losses,
+    the leaves' changes and AdamW's moments agree within bf16 limits; the
+    generator's forward hook fires once a step with the replayed output;
+    the metrics a step returned are unchanged by the next"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.train import core, graphs
+    device = deterministic
+    config = port.config.load()
+    batches = _graph_batches(config, 5, device, 0)
+    (eager, graphed), (eager_outputs, outputs) = _twins(
+        config, device, monkeypatch)
+    start = torch.cat([leaf.detach().reshape(-1).clone() for leaf in (
+        [graphed.trainable[name] for name in graphed.names] +
+        list(graphed.discriminator.parameters()))])
+    replays, returned = graphs.Graphs.replays, []
+    for index, batch in enumerate(batches):
+        expected = core.train_step(eager, batch)
+        metrics = core.train_step(graphed, batch)
+        assert graphs.Graphs.replays == replays + index
+        assert len(outputs) == index + 1
+        returned.append((metrics, {name: value.clone()
+                                   for name, value in metrics.items()}))
+        _assert_metrics_close(metrics, expected, index)
+    assert graphs.Graphs.replays == replays + 4
+    assert eager.graphs is None and graphed.graphs.phases is not None
+    for ours, theirs in zip(outputs, eager_outputs):
+        assert _gap(ours, theirs) <= BF16_GAP
+    for metrics, kept in returned:
+        for name, value in kept.items():
+            assert torch.equal(metrics[name], value), name
+    leaves, eager_leaves = _assert_states_close(graphed, eager)
+    assert _gap(leaves - start, eager_leaves - start) <= BF16_GAP
+
+
+def _narrow(**overrides):
+    import promonet_tpu_torch as port
+    return port.config.load().replace(
+        HIFIGAN_UPSAMPLE_INITIAL_SIZE=32, CHUNK_SIZE=2048, BATCH_SIZE=2,
+        **overrides)
+
+
+def test_a_loaded_checkpoint_is_recaptured(
+        deterministic, tmp_path, monkeypatch):
+    """`load_checkpoint` into a graphed state drops its graphs: the next
+    step runs eagerly, the one after recaptures, and both match the
+    steps of an eager state loaded from the same checkpoint"""
+    from promonet_tpu_torch.train import core, graphs
+    device, config = deterministic, _narrow()
+    batches = _graph_batches(config, 5, device, 1)
+    (eager, graphed), _ = _twins(config, device, monkeypatch)
+    for batch in batches[:3]:
+        core.train_step(graphed, batch)
+    core.save_checkpoint(tmp_path, graphed, 3, 0)
+    path = tmp_path / 'generator-00000003.pt'
+    for state in (eager, graphed):
+        assert core.load_checkpoint(state, path) == (3, 0)
+    assert graphed.graphs is None
+    replays = graphs.Graphs.replays
+    for index, batch in enumerate(batches[3:]):
+        expected = core.train_step(eager, batch)
+        metrics = core.train_step(graphed, batch)
+        assert graphs.Graphs.replays == replays + index
+        _assert_metrics_close(metrics, expected, index)
+    _assert_states_close(graphed, eager)
+
+
+def test_a_changed_switch_runs_eagerly(deterministic, monkeypatch):
+    """`adversarial` off for two steps, then on for three: the step that
+    turns it on runs eagerly and the next recaptures; every step matches
+    the eager state's"""
+    from promonet_tpu_torch.train import core, graphs
+    device, config = deterministic, _narrow()
+    batches = _graph_batches(config, 5, device, 2)
+    (eager, graphed), _ = _twins(config, device, monkeypatch)
+    replays, graphed_steps = graphs.Graphs.replays, []
+    for index, batch in enumerate(batches):
+        adversarial = index >= 2
+        expected = core.train_step(eager, batch, adversarial=adversarial)
+        before = graphs.Graphs.replays
+        metrics = core.train_step(graphed, batch, adversarial=adversarial)
+        graphed_steps.append(graphs.Graphs.replays - before)
+        _assert_metrics_close(metrics, expected, index)
+    assert graphed_steps == [0, 1, 0, 1, 1]
+    assert graphs.Graphs.replays == replays + 3
+    _assert_states_close(graphed, eager)
+
+
+def test_fargan_replays_draw_the_eager_noise(deterministic, monkeypatch):
+    """A narrow bf16 FARGAN step draws its noise from `State.rng`: the
+    graphed steps (the generator registered with the first graph) give
+    the eager steps' outputs and losses, so a replay draws the numbers an
+    eager step would"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.train import core, graphs
+    config = port.config.load(
+        Path(__file__).resolve().parent.parent / 'configs' / 'fargan.py'
+    ).replace(BATCH_SIZE=2, CHUNK_SIZE=1536)
+    device = deterministic
+    batches = _graph_batches(config, 4, device, 3)
+    (eager, graphed), (eager_outputs, outputs) = _twins(
+        config, device, monkeypatch)
+    replays = graphs.Graphs.replays
+    for index, batch in enumerate(batches):
+        _assert_metrics_close(core.train_step(graphed, batch),
+                              core.train_step(eager, batch), index)
+    assert graphs.Graphs.replays == replays + 3
+    for ours, theirs in zip(outputs, eager_outputs):
+        assert _gap(ours, theirs) <= 1e-3
+
+
+def test_nccl_steps_stay_eager(deterministic, tmp_path):
+    """One NCCL rank with the mesh set: its steps run eagerly (captured
+    all-reduces hung on four cards) with plain optimizers, their step
+    counts on the host, each issuing its two all-reduces, and three of
+    them match the steps of a state without the group (float32, within
+    1e-5 relative)"""
+    import torch.distributed as dist
+
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.train import core, graphs
+    device, config = deterministic, _narrow(PRECISION='float32')
+    batches = _graph_batches(config, 3, device, 4)
+    (alone, state), _ = _twins(config, device)
+    expected = [core.train_step(alone, batch) for batch in batches]
+    dist.init_process_group(
+        'nccl', init_method=f'file://{tmp_path / "store"}', rank=0,
+        world_size=1)
+    try:
+        state.mesh = port.parallel.create_mesh(config=config, device=device)
+        replays = graphs.Graphs.replays
+        launches = port.parallel.all_reduce_mean.launches
+        metrics = [core.train_step(state, batch) for batch in batches]
+        torch.cuda.synchronize()
+        assert graphs.Graphs.replays == replays
+        assert port.parallel.all_reduce_mean.launches == launches + 6
+        for optimizer in (state.generator_optimizer,
+                          state.discriminator_optimizer):
+            assert optimizer.param_groups[0]['capturable'] is False
+            assert all(saved['step'].device.type == 'cpu'
+                       for saved in optimizer.state.values())
+    finally:
+        dist.destroy_process_group()
+    for index, (ours, theirs) in enumerate(zip(metrics, expected)):
+        _assert_metrics_close(ours, theirs, index, 1e-5)
+
+
+def test_a_rebound_train_step_trains_by_graphs(device, tmp_path, monkeypatch):
+    """`train` with `core.train_step` rebound to a wrapper, as the smoke's
+    timed steps and the benchmark's controls rebind it: five resident
+    steps, the first eager and the four after it replays, every loss
+    finite"""
+    import promonet_tpu_torch as port
+    from promonet_tpu_torch.train import core, graphs
+    config = _narrow(
+        CACHE_DIR=tmp_path / 'cache', PARTITIONS_DIR=tmp_path / 'partitions',
+        AUGMENT_DIR=tmp_path / 'augmentations', RUNS_DIR=tmp_path / 'runs',
+        CHECKPOINTS_DIR=tmp_path / 'checkpoints', DEFAULT_EVALUATION_STEPS=1)
+    port.data.synthetic.create(
+        speakers=2, utterances=4, seconds=0.5, preprocess=False,
+        config=config, device=device)
+    port.data.augment.datasets(['synthetic'], config)
+    port.data.preprocess.core.datasets(
+        ['synthetic'], config=config, device=device)
+    monkeypatch.setattr(
+        port.utils.log, '_tensorboard_writer', lambda directory: None)
+    step, seen = core.train_step, []
+
+    def wrapper(*args, **kwargs):
+        seen.append(graphs.Graphs.replays)
+        return step(*args, **kwargs)
+
+    monkeypatch.setattr(core, 'train_step', wrapper)
+    replays, losses = graphs.Graphs.replays, []
+    port.train(
+        tmp_path / 'run', 'synthetic', steps=5, config=config, device=device,
+        callback=lambda step, metrics: losses.append(
+            float(metrics['loss/generator/total'])))
+    assert seen == [replays, replays, replays + 1, replays + 2, replays + 3]
+    assert graphs.Graphs.replays == replays + 4
+    assert losses and all(np.isfinite(loss) for loss in losses)
+
+
+###############################################################################
 # K4: FARGAN's subframe network as one launch
 ###############################################################################
 

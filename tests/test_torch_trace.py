@@ -318,6 +318,8 @@ def test_a_training_step_gives_its_five_phases(no_synchronize):
     records = timer.spans()
     step = only(records, 'train.step')
     assert step.parent == 0
+    # A CPU step runs eagerly, never by CUDA graphs
+    assert step.counts == {'graphed': 0}
     phases = [record for record in records if record.parent == step.id]
     assert [record.name for record in phases] == [
         'train.generator', 'train.discriminator', 'train.losses',

@@ -38,6 +38,7 @@ The Vocos and spectrogram-only generators' steps are in
 `test_torch_train_runs.py`; both import the helpers here.
 """
 import os
+import types
 from pathlib import Path
 
 import jax
@@ -53,7 +54,7 @@ from promonet_tpu.train import core as jax_core
 
 import promonet_tpu_torch as port
 from promonet_tpu_torch.models import bridge, modules
-from promonet_tpu_torch.train import core
+from promonet_tpu_torch.train import core, graphs
 
 ROOT = Path(__file__).resolve().parent.parent
 NARROW = dict(
@@ -488,3 +489,245 @@ def test_training_route_never_reaches_the_kernel(monkeypatch):
     assert len(calls) == 12
     np.testing.assert_allclose(
         trained.detach().numpy(), inferred.detach().numpy(), atol=2e-6)
+
+
+###############################################################################
+# The rules of the CUDA graphs (`train.graphs`) that the CPU can see
+###############################################################################
+
+@pytest.fixture(scope='module')
+def stepped():
+    """A narrow state after one step (AdamW's state made), and its batch"""
+    state = core.create_state(_config(), 'cpu')
+    batch = core.to_device(_batch(0), torch.device('cpu'))
+    core.train_step(state, batch)
+    return state, batch
+
+
+def _on_a_card(state):
+    """`state` as `graphs.graphable` would see it on a card: its models,
+    optimizers and mesh, its device CUDA (with a batch of no tensors)"""
+    return types.SimpleNamespace(
+        device=torch.device('cuda'), generator=state.generator,
+        discriminator=state.discriminator,
+        generator_optimizer=state.generator_optimizer,
+        discriminator_optimizer=state.discriminator_optimizer,
+        mesh=state.mesh)
+
+
+HOOKS = {
+    'generator pre-hook': lambda state: (
+        state.generator.register_forward_pre_hook(lambda *_: None)),
+    'discriminator pre-hook': lambda state: (
+        state.discriminator.register_forward_pre_hook(lambda *_: None)),
+    'discriminator forward hook': lambda state: (
+        state.discriminator.register_forward_hook(lambda *_: None)),
+    'submodule forward hook': lambda state: (
+        state.generator.backbone.register_forward_hook(lambda *_: None)),
+    'backward hook': lambda state: (
+        state.discriminator.discriminators[0].register_full_backward_hook(
+            lambda *_: None)),
+    'global forward hook': lambda state: (
+        torch.nn.modules.module.register_module_forward_hook(
+            lambda *_: None)),
+}
+
+
+@pytest.mark.parametrize('case', list(HOOKS))
+def test_a_hook_keeps_the_steps_eager(stepped, case):
+    """A hook that a graph would fire at its capture only makes every step
+    eager; removed, the step may be graphed again"""
+    state, _ = stepped
+    handle = HOOKS[case](state)
+    try:
+        hooked = graphs.graphable(_on_a_card(state), {}, None)
+    finally:
+        handle.remove()
+    assert not hooked
+    assert graphs.graphable(_on_a_card(state), {}, None)
+
+
+def test_a_generator_forward_hook_leaves_steps_graphable(stepped):
+    """The generator's own forward hooks are called after a replay"""
+    state, _ = stepped
+    handle = state.generator.register_forward_hook(lambda *_: None)
+    try:
+        assert graphs.graphable(_on_a_card(state), {}, None)
+    finally:
+        handle.remove()
+
+
+def test_the_cpu_and_a_given_noise_keep_the_steps_eager(stepped):
+    """A CPU step is eager, and so is a step given a noise source or one
+    whose batch holds a tensor off the card; an optimizer that cannot be
+    capturable (SGD) keeps every step eager"""
+    state, batch = stepped
+    card = _on_a_card(state)
+    assert not graphs.graphable(state, batch, None)
+    assert not graphs.graphable(card, batch, None)
+    assert not graphs.graphable(card, {}, lambda x: torch.rand_like(x))
+    card.discriminator_optimizer = torch.optim.SGD(
+        state.discriminator.parameters(), lr=1e-3)
+    assert not graphs.graphable(card, {}, None)
+
+
+def _swap_moment(state, batch):
+    leaf = state.trainable[state.names[0]]
+    moments = state.generator_optimizer.state[leaf]
+    moments['exp_avg'] = moments['exp_avg'].clone()
+    return batch
+
+
+def _swap_leaf(state, batch):
+    leaf = state.discriminator.discriminators[0].convs[0].weight_v
+    leaf.data = leaf.data.clone()
+    return batch
+
+
+def _new_rate(state, batch):
+    state.discriminator_optimizer.param_groups[0]['lr'] *= 2
+    return batch
+
+
+KEY_CHANGES = {
+    'a shorter batch': lambda state, batch: dict(
+        batch, audio=batch['audio'][:1]),
+    'another dtype': lambda state, batch: dict(
+        batch, speakers=batch['speakers'].int()),
+    'new optimizer state': _swap_moment,
+    'a swapped leaf': _swap_leaf,
+    'a new learning rate': _new_rate,
+}
+
+
+@pytest.mark.parametrize('change', list(KEY_CHANGES))
+def test_what_changes_a_steps_key(stepped, change):
+    """A batch of other shapes or dtypes, a tensor the step updates
+    swapped for another, or a changed optimizer setting: another key,
+    whose first step runs eagerly (the changes are left in place: the
+    state stays a state that steps)"""
+    state, batch = stepped
+    group = state.discriminator_optimizer.param_groups[0]
+    rate = group['lr']
+    before = graphs.key(state, batch, True, True)
+    try:
+        changed = KEY_CHANGES[change](state, batch)
+        assert graphs.key(state, changed, True, True) != before
+    finally:
+        group['lr'] = rate
+
+
+def test_the_switches_are_in_the_key(stepped):
+    state, batch = stepped
+    key = graphs.key(state, batch, True, True)
+    assert graphs.key(state, batch, False, True) != key
+    assert graphs.key(state, batch, True, False) != key
+
+
+def test_a_process_group_keeps_the_steps_eager(stepped):
+    """NCCL's all-reduces inside graphs hung on four cards"""
+    state, _ = stepped
+    card = _on_a_card(state)
+    card.mesh = port.parallel.Mesh({'data': 1}, group=True)
+    assert not graphs.graphable(card, {}, None)
+    card.mesh = port.parallel.Mesh({'data': 1})
+    assert graphs.graphable(card, {}, None)
+
+
+def test_a_step_keeps_its_key(stepped):
+    """The step updates its tensors in place: the key of the step after
+    it is the key it had, so that step is captured"""
+    state, batch = stepped
+    key = graphs.key(state, batch, True, True)
+    calls = []
+    handle = state.generator.register_forward_hook(
+        lambda module, args, output: calls.append(
+            (module, len(args), tuple(output.shape))))
+    try:
+        metrics = core.train_step(state, batch)
+    finally:
+        handle.remove()
+    assert graphs.key(state, batch, True, True) == key
+    # A hook fires once a step, with the generator's seven inputs
+    assert calls == [(state.generator, 7, (2, 1, 2048))]
+    assert state.graphs is None
+    assert all(value.shape == () for value in metrics.values())
+
+
+@pytest.mark.parametrize('device', ['cpu', 'meta'])
+def test_a_loaded_step_count_lies_on_the_parameters_device(device):
+    """Where a capturable optimizer keeps it; a plain one keeps it on the
+    host"""
+    for capturable in (True, False):
+        parameters = [torch.nn.Parameter(torch.zeros(3, device=device))]
+        optimizer = torch.optim.AdamW(parameters, capturable=capturable)
+        core.load_optimizer_state(optimizer, ['w'], parameters, {
+            'step': 5, 'exp_avg': {'w': torch.ones(3)},
+            'exp_avg_sq': {'w': torch.ones(3)}})
+        saved = optimizer.state[parameters[0]]
+        assert saved['step'].device.type == (
+            device if capturable else 'cpu')
+        assert saved['exp_avg'].device.type == device
+        if saved['step'].device.type == 'cpu':
+            assert float(saved['step']) == 5.
+
+
+@pytest.mark.parametrize('device', ['cpu', 'meta'])
+def test_capturable_mode_moves_the_step_counts(device):
+    """On: AdamW capturable, its step counts on the parameters' device (a
+    second call changes nothing); off: plain, the counts on the host (a
+    meta count has no value to bring back); SGD has no such mode"""
+    parameters = [torch.nn.Parameter(torch.zeros(3, device=device))]
+    state = types.SimpleNamespace(
+        generator_optimizer=torch.optim.AdamW(parameters),
+        discriminator_optimizer=torch.optim.SGD(parameters, lr=1e-3))
+    saved = state.generator_optimizer.state[parameters[0]] = {
+        'step': torch.tensor(5.)}
+    switches = [(True, device), (True, device)] + (
+        [(False, 'cpu')] if device == 'cpu' else [])
+    for on, where in switches:
+        count = saved['step']
+        graphs.capturable(state, on)
+        assert state.generator_optimizer.param_groups[0]['capturable'] is on
+        assert saved['step'].device.type == where
+        assert 'capturable' not in \
+            state.discriminator_optimizer.param_groups[0]
+    assert saved['step'] is count
+    if device == 'cpu':
+        assert float(saved['step']) == 5.
+
+
+def test_an_eager_step_runs_plain_optimizers(stepped):
+    """A step that cannot be graphed (here on the CPU) takes Adam and
+    AdamW out of capturable mode, whose extra launches only a replay
+    hides"""
+    state, batch = stepped
+    graphs.capturable(state, True)
+    core.train_step(state, batch)
+    for optimizer in (state.generator_optimizer,
+                      state.discriminator_optimizer):
+        assert optimizer.param_groups[0]['capturable'] is False
+        assert all(saved['step'].device.type == 'cpu'
+                   for saved in optimizer.state.values())
+
+
+def test_a_replay_calls_the_forward_hooks_as_a_call_would():
+    """Each hook once, with or without the call's keyword arguments"""
+    module = torch.nn.Linear(2, 2)
+    calls = []
+    module.register_forward_hook(
+        lambda *arguments: calls.append(('plain', arguments)))
+    module.register_forward_hook(
+        lambda *arguments: calls.append(('kwargs', arguments)),
+        with_kwargs=True)
+    args, kwargs, output = (torch.ones(2),), {'train': True}, torch.zeros(2)
+    graphs.call_forward_hooks(module, args, kwargs, output)
+    assert calls == [('plain', (module, args, output)),
+                     ('kwargs', (module, args, kwargs, output))]
+
+
+def test_a_hook_may_not_replace_a_replayed_output():
+    module = torch.nn.Linear(2, 2)
+    module.register_forward_hook(lambda module, args, output: output + 1)
+    with pytest.raises(RuntimeError, match='forward pre-hook'):
+        graphs.call_forward_hooks(module, (), {}, torch.zeros(2))
