@@ -22,7 +22,6 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
-import torch
 
 import promonet_tpu
 from promonet_tpu.preprocess import pitch as jax_pitch
@@ -41,17 +40,13 @@ NARROW = dict(
 
 
 @pytest.fixture(scope='module', autouse=True)
-def _quiet_and_two_threads():
-    """Two intra-op threads (under the suite's six workers, PyTorch's
-    default of one thread per core oversubscribes the CPU) and no
-    TensorBoard writer (its import brings in TensorFlow where installed)"""
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
+def _quiet():
+    """No TensorBoard writer (its import brings in TensorFlow where
+    installed)"""
     with pytest.MonkeyPatch.context() as patch:
         patch.setattr(
             port.utils.log, '_tensorboard_writer', lambda directory: None)
         yield
-    torch.set_num_threads(previous)
 
 
 def _keys(tree):

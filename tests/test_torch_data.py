@@ -372,17 +372,13 @@ def test_port_never_writes_into_the_jax_package(tmp_path, monkeypatch):
     and of the PPG encoder's training and the per-speaker averages, with
     only the directories the port writes pointed at a temporary one; the
     generator is narrowed to the width the parity tests use, and training
-    to a chunk of 2048 samples, which moves no file. Training runs on two
-    threads and without TensorBoard, as in `test_torch_train_runs.py`"""
-    import torch
+    to a chunk of 2048 samples, which moves no file. Training runs
+    without TensorBoard, as in `test_torch_train_runs.py`"""
     monkeypatch.setattr(
         port.utils.log, '_tensorboard_writer', lambda directory: None)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
     try:
         _run_everything_that_writes(tmp_path)
     finally:
-        torch.set_num_threads(threads)
         drop_large_files(tmp_path)
 
 

@@ -48,16 +48,6 @@ FAMILIES = {
         lambda: discriminator.DiscriminatorMagFree((256, 64, 256))),
 }
 
-@pytest.fixture(scope='module', autouse=True)
-def _two_threads():
-    """Two intra-op threads: under the suite's six workers, PyTorch's
-    default of one thread per core oversubscribes the CPU"""
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(previous)
-
-
 def _audio():
     rng = np.random.default_rng(0)
     return (0.3 * rng.standard_normal((2, 1, SAMPLES))).astype(np.float32)

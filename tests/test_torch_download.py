@@ -211,8 +211,7 @@ def test_cli_formats_without_jax(dirs, tmp_path):
     result = subprocess.run(
         [sys.executable, '-c', code, '--datasets', 'libritts', 'vctk',
          '--config', str(config_file), '--gpu', '-1'],
-        capture_output=True, text=True, timeout=300, cwd=ROOT,
-        env=dict(os.environ, OMP_NUM_THREADS='2'))
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert result.returncode == 0, result.stdout + result.stderr
 
     promonet_tpu.data.download.datasets(['libritts', 'vctk'])

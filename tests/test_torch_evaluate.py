@@ -220,16 +220,12 @@ def test_command_line_writes_the_same_conditions(evaluations, tmp_path):
         f'HIFIGAN_UPSAMPLE_INITIAL_SIZE = {WIDTH}\n'
         f'EVALUATION_RATIOS = {RATIOS!r}\n'
         "PRECISION = 'float32'\n")
-    # Two threads, as the tests' other CLI processes: with a thread per
-    # core beside the tier-1 run's six workers, the process can take a
-    # hundred times as long as alone, past the timeout
     result = subprocess.run(
         [sys.executable, '-m', 'promonet_tpu_torch.evaluate', '--datasets',
          'synthetic', '--checkpoint',
          str(config.CHECKPOINTS_DIR / 'generator-00000001.pt'),
          '--max_stems', '1', '--gpu', '-1', '--config', str(config_file)],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, OMP_NUM_THREADS='2'))
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert result.returncode == 0, result.stderr[-3000:]
     with open(tmp_path / 'results' / 'promonet' / 'synthetic' /
               'results.json') as file:

@@ -50,7 +50,6 @@ from promonet_tpu.preprocess import pitch as jax_pitch
 import promonet_tpu_torch as port
 from promonet_tpu_torch.models import bridge, init
 from promonet_tpu_torch.preprocess import training
-from test_torch_train import _two_threads  # noqa: F401
 
 STEPS = 2
 SEED = promonet_tpu.RANDOM_SEED

@@ -18,7 +18,6 @@ from promonet_tpu_torch.models import bridge
 from test_torch_extractor_pitch import (
     SEED, STEPS, assert_gradients, assert_losses, assert_weights,
     make_corpus, run_jax, run_port, saved, shipped_checkpoints, wide)
-from test_torch_train import _two_threads  # noqa: F401
 
 PPG = dict(batch_size=4, window=32, learning_rate=1e-3)
 MELS_ATOL = 2e-5

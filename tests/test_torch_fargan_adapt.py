@@ -22,7 +22,6 @@ import torch
 
 import promonet_tpu_torch as port
 
-from test_torch_train import _two_threads  # noqa: F401
 from test_torch_train import drop_large_files
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -138,7 +137,7 @@ def test_command_line_trains_fargan(adapted, tmp_path):
          str(narrow), '--gpu', '-1'],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PROMONET_TPU_TORCH_CONFIG='',
-                 OMP_NUM_THREADS='2', PYTHONPATH=os.pathsep.join(
+                 PYTHONPATH=os.pathsep.join(
                      [str(stub.parent)] + [
                          path for path in [os.environ.get('PYTHONPATH')]
                          if path])))

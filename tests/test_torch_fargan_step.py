@@ -25,7 +25,7 @@ from test_torch_fargan_train import (
     FRAMES, NARROW, PER_FRAME, SharedNoise, _batch, _config)
 from test_torch_train import (
     _assert_gradients_close, _jax_gradients, _params, _port_state,
-    _record_gradients, _recording_optimizer, _two_threads)  # noqa: F401
+    _record_gradients, _recording_optimizer)
 
 
 @pytest.fixture(scope='module')

@@ -34,7 +34,6 @@ import promonet_tpu_torch as port
 from promonet_tpu_torch.models import fargan
 from promonet_tpu_torch.train import core, loss as loss_module
 
-from test_torch_train import _two_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 FRAMES = 6

@@ -46,14 +46,6 @@ jax_mesh = __import__('promonet_tpu.parallel.mesh', fromlist=['mesh'])
 BATCH = 4
 
 
-@pytest.fixture(scope='module', autouse=True)
-def _two_threads():
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(previous)
-
-
 # The narrow configuration of `test_torch_train.py` at batch 4, cut to two
 # upsampling stages of one Block each and the multi-period discriminators
 # alone, which halves the JAX package's compile
@@ -202,7 +194,10 @@ def test_parameter_shardings_match_jax(jax_step):
 
 
 # One gloo rank, in a process of its own that imports neither JAX nor the
-# tests: one step on its half of the batch, its results saved
+# tests: one step on its half of the batch, its results saved. It inherits
+# the test process's thread count through the environment: in float32 a
+# Block bias's gradient sums terms that nearly cancel, in an order that
+# follows the count (one thread against two moves it by 7e-4 of its scale)
 WORKER = """
 import sys
 import torch
@@ -212,10 +207,6 @@ from promonet_tpu_torch import parallel
 from promonet_tpu_torch.train import core
 
 rank, directory = int(sys.argv[1]), sys.argv[2]
-# Two threads, as the single process has: in float32 a Block bias's
-# gradient sums terms that nearly cancel, in an order that follows the
-# thread count (one thread against two moves it by 7e-4 of its scale)
-torch.set_num_threads(2)
 given = torch.load(f'{directory}/given.pt', weights_only=False)
 dist.init_process_group(
     'gloo', init_method=f'file://{directory}/store', rank=rank, world_size=2)

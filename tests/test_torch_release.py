@@ -244,8 +244,7 @@ def test_synthesize_cli_takes_a_jax_run_directory(tmp_path):
         arguments += [f'--{name}_files', str(tmp_path / f'a-{name}.npy')]
     result = subprocess.run(
         [sys.executable, '-m', 'promonet_tpu_torch.synthesize', *arguments],
-        capture_output=True, text=True, timeout=600, cwd=ROOT,
-        env=dict(os.environ, OMP_NUM_THREADS='2'))
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
     assert result.returncode == 0, result.stdout + result.stderr
     audio = port.load.audio(tmp_path / 'a.wav')
     assert audio.shape == (1, frames * 256)

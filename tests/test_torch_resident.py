@@ -41,16 +41,12 @@ CHUNK_FRAMES = CHUNK_SIZE // 256
 
 
 @pytest.fixture(scope='module', autouse=True)
-def _two_threads():
-    """Two intra-op threads (see `test_torch_train._two_threads`) and no
-    TensorBoard writer"""
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
+def _quiet():
+    """No TensorBoard writer"""
     with pytest.MonkeyPatch.context() as patch:
         patch.setattr(
             port.utils.log, '_tensorboard_writer', lambda directory: None)
         yield
-    torch.set_num_threads(previous)
 
 
 @pytest.fixture(scope='module')

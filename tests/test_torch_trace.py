@@ -26,14 +26,10 @@ from promonet_tpu_torch.utils import timer
 
 @pytest.fixture(autouse=True)
 def _clean_records():
-    """Each test reads only its own records; two threads, as the other
-    tests that run models on the CPU"""
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
+    """Each test reads only its own records"""
     timer.reset()
     yield
     timer.reset()
-    torch.set_num_threads(previous)
 
 
 @pytest.fixture

@@ -63,17 +63,6 @@ NARROW = dict(
 LR = 2e-4
 
 
-@pytest.fixture(scope='module', autouse=True)
-def _two_threads():
-    """Two intra-op threads: under the suite's six workers, PyTorch's
-    default of one thread per core oversubscribes the CPU, and the many
-    small operations of a training step then wait on each other"""
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(previous)
-
-
 def drop_large_files(directory, size=2 ** 20):
     """Delete the files over `size` bytes that a test wrote under
     `directory`, never through a symbolic link: its checkpoints (a

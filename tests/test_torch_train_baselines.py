@@ -7,8 +7,7 @@ SPECTROGRAM_ONLY.
 import pytest
 
 from test_torch_train import (
-    LR, _assert_first_step_matches, _config, _jax_steps, _run_port_step,
-    _two_threads)  # noqa: F401  (the fixture applies here too)
+    LR, _assert_first_step_matches, _config, _jax_steps, _run_port_step)
 
 
 @pytest.mark.parametrize('generator', ['vocos', 'mels'])

@@ -17,7 +17,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 import importlib
 
@@ -35,16 +34,6 @@ from promonet_tpu_torch.data import native
 
 ROOT = Path(__file__).resolve().parent.parent
 SHAPE = dict(speakers=3, utterances=4, seconds=0.5)
-
-
-@pytest.fixture(scope='module', autouse=True)
-def _two_threads():
-    """Two intra-op threads: under the suite's six workers, PyTorch's
-    default of one thread per core oversubscribes the CPU"""
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(previous)
 
 
 @pytest.fixture(scope='module')

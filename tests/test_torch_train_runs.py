@@ -28,16 +28,12 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope='module', autouse=True)
-def _quiet_and_two_threads():
-    """Two intra-op threads (see `test_torch_train._two_threads`) and no
-    TensorBoard writer"""
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
+def _quiet():
+    """No TensorBoard writer"""
     with pytest.MonkeyPatch.context() as patch:
         patch.setattr(
             port.utils.log, '_tensorboard_writer', lambda directory: None)
         yield
-    torch.set_num_threads(previous)
 
 
 def test_log_writes_tensorboard_where_it_imports(tmp_path, monkeypatch):
@@ -287,7 +283,7 @@ def test_command_line_trains_into_the_port_runs(corpus, tmp_path):
          'synthetic', '--config', str(config_file), '--gpu', '-1'],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PROMONET_TPU_TORCH_CONFIG='',
-                 OMP_NUM_THREADS='2', PYTHONPATH=os.pathsep.join(
+                 PYTHONPATH=os.pathsep.join(
                      [str(stub.parent)] + [
                          path for path in [os.environ.get('PYTHONPATH')]
                          if path])))

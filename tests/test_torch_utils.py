@@ -9,15 +9,20 @@ on one directory. Threads stand in for the trainer; every wait polls
 with a generous deadline, so six test workers on one machine cannot
 make it race. The notification tests never reach the network: the
 webhook's `urlopen` is replaced. `data.augment.datasets` and
-`data.preprocess.datasets` report as the JAX package's do.
+`data.preprocess.datasets` report as the JAX package's do. The last test
+pins the CPU threads that the repository's root `conftest.py` gives every
+test process and the processes it starts.
 """
 import json
 import os
 import subprocess
+import sys
 import threading
 import time
+from pathlib import Path
 
 import pytest
+import torch
 
 import promonet_tpu
 from promonet_tpu.utils import pause as jax_pause
@@ -341,3 +346,20 @@ def test_dataset_steps_are_notified(config, job, monkeypatch):
 def test_train_and_evaluate_are_notified():
     assert port.train.__wrapped__.__name__ == 'train'
     assert port.evaluate.datasets.__wrapped__.__name__ == 'datasets'
+
+
+###############################################################################
+# Test processes
+###############################################################################
+
+
+def test_root_conftest_owns_the_threads_of_every_test_process(request):
+    owner = request.config.pluginmanager.get_plugin(
+        str(Path(__file__).resolve().parent.parent / 'conftest.py'))
+    assert torch.get_num_threads() == owner.THREADS
+    for name in ('OMP_NUM_THREADS', 'MKL_NUM_THREADS'):
+        assert os.environ[name] == str(owner.THREADS)
+    result = subprocess.run(
+        [sys.executable, '-c', 'import torch; print(torch.get_num_threads())'],
+        capture_output=True, text=True, timeout=120, check=True)
+    assert int(result.stdout) == owner.THREADS

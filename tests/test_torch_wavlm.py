@@ -37,13 +37,10 @@ HF_SIZES = dict(
 
 
 @pytest.fixture(autouse=True)
-def _threads():
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
+def _clean_records():
     timer.reset()
     yield
     timer.reset()
-    torch.set_num_threads(previous)
 
 
 def seeded_state(seed=3):
